@@ -1,0 +1,157 @@
+"""The port's CLI against the JAX package's CLI, end to end on the CPU.
+
+Both CLIs run on the same synthetic genomes into separate databases;
+their ``export-run`` tables must be equal (matrices with both axes
+sorted: integer matrices exact, floats equal). A run started by one
+package resumes under the other, and the port runs without importing
+JAX at all.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+from click.testing import CliRunner
+
+from pyani_plus_tpu.cli.main import app as jax_app
+from pyani_plus_tpu.db import Database
+from pyani_plus_tpu_torch.cli.main import app as torch_app
+from pyani_plus_tpu_torch.synthetic import write_genome_dir
+
+REPO = Path(__file__).resolve().parents[1]
+APPS = {"jax": jax_app, "torch": torch_app}
+METHODS = {"anim": "ANIm", "dnadiff": "dnadiff"}
+
+
+@pytest.fixture(scope="module")
+def genome_dir(tmp_path_factory) -> Path:
+    directory = tmp_path_factory.mktemp("genomes")
+    write_genome_dir(directory, 40_000, [0.02, 0.08, 0.15], seed=7)
+    return directory
+
+
+def _run_cli(app, args: list[str]) -> str:
+    result = CliRunner().invoke(app, args, catch_exceptions=False)
+    assert result.exit_code == 0, result.output
+    return result.output
+
+
+def _read(path: Path) -> pd.DataFrame:
+    frame = pd.read_csv(path, sep="\t", index_col=0)
+    frame.index = frame.index.map(str)
+    return frame.sort_index(axis=0).sort_index(axis=1)
+
+
+@pytest.mark.parametrize("command", sorted(METHODS))
+def test_cli_export_matches_jax(command: str, genome_dir: Path, tmp_path: Path) -> None:
+    outdirs = {}
+    for tag, app in APPS.items():
+        db = tmp_path / f"{tag}.db"
+        _run_cli(app, [command, str(genome_dir), "-d", str(db), "--create-db"])
+        outdirs[tag] = tmp_path / f"out_{tag}"
+        _run_cli(app, ["export-run", "-d", str(db), "-o", str(outdirs[tag])])
+    method = METHODS[command]
+    names = sorted(p.name for p in outdirs["jax"].glob("*.tsv"))
+    assert names == sorted(p.name for p in outdirs["torch"].glob("*.tsv"))
+    for name in ("aln_lengths", "sim_errors", "identity", "query_cov", "hadamard", "tANI"):
+        assert f"{method}_{name}.tsv" in names, name
+    for name in names:
+        got, expected = (_read(outdirs[tag] / name) for tag in ("torch", "jax"))
+        if name.endswith("_run_1.tsv"):  # long form, rows in completion order
+            got, expected = got.sort_values(list(got.columns)), expected.sort_values(
+                list(expected.columns)
+            )
+        # exact: integers equal, floats equal (NaN where no alignment)
+        pd.testing.assert_frame_equal(got, expected, check_exact=True, obj=name)
+    identity = _read(outdirs["torch"] / f"{method}_identity.tsv").to_numpy()
+    assert np.isfinite(identity.diagonal()).all()
+
+
+@pytest.mark.parametrize(("first", "second"), [("torch", "jax"), ("jax", "torch")])
+def test_resume_across_packages(first: str, second: str, genome_dir: Path, tmp_path: Path) -> None:
+    """A partial ANIm run of one package completes under the other's
+    ``resume`` (same configuration rows, same version check)."""
+    db = tmp_path / "ani.db"
+    _run_cli(APPS[first], ["anim", str(genome_dir), "-d", str(db), "--create-db"])
+    with Database(db) as store:
+        before = {
+            (r["query_hash"], r["subject_hash"]): r["identity"]
+            for r in store.load_run().comparisons()
+        }
+        store.execute_with_retries(
+            "DELETE FROM comparisons WHERE comparison_id IN"
+            " (SELECT comparison_id FROM comparisons LIMIT 4)"
+        )
+        store.execute_with_retries("UPDATE runs SET status='Worker interrupted'")
+    _run_cli(APPS[second], ["resume", "-d", str(db)])
+    with Database(db) as store:
+        run = store.load_run()
+        assert run.comparisons_count() == 9
+        assert run.status == "Done"
+        after = {
+            (r["query_hash"], r["subject_hash"]): r["identity"]
+            for r in run.comparisons()
+        }
+    assert after == before
+
+
+def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path) -> None:
+    """The report commands are the JAX package's own; a run of a method
+    the port lacks cannot be resumed by it."""
+    assert set(torch_app.commands) == {
+        "anim", "dnadiff", "resume", "list-runs", "delete-run", "export-run",
+        "classify", "plot-run", "plot-run-comp", "export-comparisons",
+        "import-comparisons",
+    }  # fmt: skip
+    for name in ("export-run", "list-runs", "classify"):
+        assert torch_app.commands[name] is jax_app.commands[name]
+    db = tmp_path / "sm.db"
+    _run_cli(jax_app, ["sourmash", str(genome_dir), "-d", str(db), "--create-db"])
+    with pytest.raises(ValueError, match="not ported"):
+        CliRunner().invoke(
+            torch_app, ["resume", "-d", str(db)], catch_exceptions=False
+        )
+
+
+def test_port_runs_without_jax(tmp_path: Path) -> None:
+    """A CPU ANIm pair through the port, with the batched (plain PyTorch)
+    extension path forced, never imports jax. A subprocess, because the
+    test session itself imports jax (tests/conftest.py)."""
+    fastas = write_genome_dir(tmp_path, 30_000, [0.05, 0.12], seed=3)
+    code = f"""
+import json, sys
+from pyani_plus_tpu.genomes import load_genome
+import pyani_plus_tpu_torch.cli.main
+import pyani_plus_tpu_torch.parallel.runner
+from pyani_plus_tpu_torch.methods import anim
+batches = []
+real = anim.batch_extend
+anim.batch_extend = lambda tasks, device, **kw: batches.append(len(tasks)) or real(tasks, device, **kw)
+q, s = (load_genome(p) for p in {[str(p) for p in fastas]!r})
+row = anim.compute_pair(q, s)
+print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "batches": batches}}))
+"""
+    env = {
+        **os.environ,
+        "PYANI_TPU_EXTEND_BATCH_MIN": "1",
+        "OMP_NUM_THREADS": "1",  # row-serial small tensors
+        "PYTHONPATH": os.pathsep.join(
+            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]
+        ),
+    }
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        timeout=300, check=False,
+    )  # fmt: skip
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["jax"] is False
+    assert sum(result["batches"]) > 0, result
+    assert 0.7 < result["identity"] < 1.0
