@@ -6,18 +6,30 @@ CUDA card of capability 9.0, nvcc and g++, and no network. Phases, each
 of which raises on failure (so the exit code is not 0):
 
 1. probe: the device, its power limit, torch and nvcc;
-2. build: the extension kernel (csrc/extend.cu) with nvcc, timed;
-3. kernel against its plain version: a fuzz set (uneven lengths, N runs,
-   IUPAC codes, tasks past 10,240 and 12,000 rows) must give identical
-   tuples from the kernel, the plain PyTorch version and the native host
-   oracle; then both are timed at the main path's shape (512 tasks of
-   1,500-3,200 rows, every 8th of 9,900, 12% substitutions);
-4. main path: ANIm all-vs-all over 3 synthetic 2 Mb genomes (one
-   ancestor at 2%, 8% and 15% substitutions, with indels, N runs and
-   IUPAC letters) through the port's runner with the extensions on the
-   kernel, rerun with every extension on the native host kernel (the JAX
-   package's CPU production path), rows equal; dnadiff on one divergent
-   pair the same way.
+2. build: both kernels (csrc/extend.cu, csrc/sw.cu), one nvcc each, all
+   started together, timed;
+3. extension kernel against its plain version: a fuzz set (uneven
+   lengths, N runs, IUPAC codes, tasks past 10,240 and 12,000 rows) must
+   give identical tuples from the kernel, the plain PyTorch version and
+   the native host oracle; then both are timed at ANIm's shape (512
+   tasks of 1,500-3,200 rows, every 8th of 9,900, 12% substitutions);
+4. Smith-Waterman kernel against its plain version the same way: a fuzz
+   set (the JAX package's SW test shapes, windows of 2,049, 8,192 and
+   32,769 columns, N runs, IUPAC letters and padding codes, tasks with
+   no positive cell, fragments past 1,024 rows), then timed at ANIb's
+   shape (1,024 tasks of 1,020-row fragments in windows 300 columns
+   wider);
+5. ANIm all-vs-all over 3 synthetic 2 Mb genomes (one ancestor at 2%,
+   8% and 15% substitutions, with indels, N runs and IUPAC letters)
+   through the port's runner with the extensions on the kernel, rerun
+   with every extension on the native host kernel (the JAX package's
+   CPU production path), rows equal; dnadiff on one divergent pair the
+   same way;
+6. ANIb all-vs-all over the same genomes with the scoring on the
+   kernel, rerun with the native host scorer, rows equal.
+
+Each main-path run zeroes the kernels' launch counts just before it and
+reads them just after.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and the device JSON line.
@@ -40,8 +52,12 @@ import numpy as np
 GENOME_LENGTH = 2_000_000  # a small bacterial chromosome
 RATES = [0.02, 0.08, 0.15]
 SEED = 20261016
-KERNEL_SOURCE = "pyani_plus_tpu_torch/csrc/extend.cu"
-KERNEL_REPLACES = "pyani_plus_tpu/ops/extend_pallas.py:97"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "extend": ("pyani_plus_tpu_torch/csrc/extend.cu",
+               "pyani_plus_tpu/ops/extend_pallas.py:97"),
+    "sw": ("pyani_plus_tpu_torch/csrc/sw.cu",
+           "pyani_plus_tpu/ops/sw_pallas.py:55"),
+}
 
 
 def phase(name: str) -> float:
@@ -118,7 +134,8 @@ def max_abs_err(x: list[tuple], y: list[tuple]) -> int:
 
 
 def check_kernel(torch, ext) -> dict:
-    """Phase 3: the kernel against its plain version and the host oracle."""
+    """Phase 3: the extension kernel against its plain version and the
+    host oracle."""
     rng = np.random.default_rng(SEED)
     tasks = fuzz_tasks(rng)
     t0 = phase(f"kernel vs plain: fuzz set of {len(tasks)} tasks "
@@ -174,6 +191,145 @@ def check_kernel(torch, ext) -> dict:
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
 
 
+def homolog(frag: np.ndarray, rate: float, width: int,
+            rng: np.random.Generator) -> np.ndarray:
+    """A window of `width` codes holding `frag` at `rate` substitutions,
+    with short indels, between random flanks."""
+    from pyani_plus_tpu_torch.synthetic import mutate
+
+    text = mutate(np.frombuffer(b"ACGT", np.uint8)[frag % 4], rate, rng)
+    core = encode(text)
+    left = int(rng.integers(0, max(1, width - core.size)))
+    window = rng.integers(0, 4, width).astype(np.uint8)
+    core = core[: width - left]
+    window[left : left + core.size] = core
+    return window
+
+
+def sw_fuzz_tasks(rng: np.random.Generator) -> list[tuple[np.ndarray, np.ndarray]]:
+    from pyani_plus_tpu_torch.synthetic import salt
+
+    tasks = []
+    # tests/test_anib.py's Pallas SW shapes: m <= 128, n <= 256, N codes
+    for trial in range(24):
+        m = int(rng.integers(1, 129))
+        n = int(rng.integers(1, 257))
+        hi = 5 if trial % 3 else 4
+        q = rng.integers(0, hi, m).astype(np.uint8)
+        s = rng.integers(0, hi, n).astype(np.uint8)
+        if trial % 4 == 0 and n > m:
+            s[:m] = q
+            mut = rng.random(m) < 0.2
+            s[:m][mut] = (s[:m][mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        tasks.append((q, s))
+    # tests/test_dp.py's trim-equivalence shapes
+    for _ in range(24):
+        m = int(rng.integers(20, 90))
+        n = int(rng.integers(30, 140))
+        q = rng.integers(0, 5, m).astype(np.uint8)
+        s = rng.integers(0, 5, n).astype(np.uint8)
+        if rng.random() < 0.7:
+            ln = min(m, n) // 2
+            s[:ln] = q[:ln]
+        tasks.append((q, s))
+    # wide windows, and fragments past 1,024 rows
+    for m, n in ((1020, 2049), (1020, 8192), (1020, 32769), (1500, 1800), (3000, 3300)):
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        tasks.append((q, homolog(q, 0.08, n, rng)))
+    # N runs of 56 and more, IUPAC letters and padding codes (5)
+    for _ in range(6):
+        q = rng.integers(0, 4, 1020).astype(np.uint8)
+        s = homolog(q, 0.05, 1320, rng)
+        q_txt = np.frombuffer(b"ACGT", np.uint8)[q]
+        salt(q_txt, rng, n_runs=2)
+        q = encode(q_txt)
+        start = int(rng.integers(0, 900))
+        q[start : start + int(rng.integers(56, 120))] = 4
+        s[rng.random(s.size) < 0.01] = 5
+        tasks.append((q, s))
+    # no positive cell: all N, and letters that never meet
+    tasks.append((np.full(300, 4, np.uint8), rng.integers(0, 4, 600).astype(np.uint8)))
+    tasks.append((np.zeros(200, np.uint8), np.full(500, 1, np.uint8)))
+    tasks.append((np.full(100, 5, np.uint8), np.full(100, 5, np.uint8)))
+    return tasks
+
+
+def sw_main_tasks(rng: np.random.Generator) -> list[tuple[np.ndarray, np.ndarray]]:
+    """ANIb's shape: 1,024 tasks, 1,020-row fragments (every 16th a tail
+    of 40-1,019), windows 300 columns wider, 60% homologous at 2-15%."""
+    tasks = []
+    for t in range(1024):
+        m = 1020 if t % 16 else int(rng.integers(40, 1020))
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        if rng.random() < 0.6:
+            s = homolog(q, float(rng.uniform(0.02, 0.15)), m + 300, rng)
+        else:
+            s = rng.integers(0, 4, m + 300).astype(np.uint8)
+        tasks.append((q, s))
+    return tasks
+
+
+def check_sw_kernel(torch, sw) -> dict:
+    """Phase 4: the SW kernel against its plain version and the oracle."""
+    rng = np.random.default_rng(SEED + 1)
+    workers = os.cpu_count() or 1
+    tasks = sw_fuzz_tasks(rng)
+    t0 = phase(f"SW kernel vs plain: fuzz set of {len(tasks)} tasks (longest "
+               f"fragment {max(q.size for q, _ in tasks)} rows, widest window "
+               f"{max(s.size for _, s in tasks)} columns)")
+    got = sw.batch_sw_best_cuda(tasks)
+    torch.cuda.synchronize()
+    plain = sw.batch_sw_best_reference(tasks)
+    host = sw.batch_sw_best_host(tasks, workers=workers)
+    if got != plain or got != host:
+        bad = [i for i in range(len(tasks)) if not got[i] == plain[i] == host[i]]
+        msg = f"SW kernel disagrees on tasks {bad[:10]}: {[(got[i], plain[i], host[i]) for i in bad[:3]]}"
+        raise AssertionError(msg)
+    if not any(r[0] == 0 for r in got) or not any(r[1] > 1024 for r in got):
+        raise AssertionError("the SW fuzz set lost its no-alignment or long-fragment tasks")
+    err = max_abs_err(got, plain)
+    print(f"   identical (score, best_i, best_j): kernel == plain == native on {len(tasks)} tasks")
+    done("SW fuzz", t0)
+
+    tasks = sw_main_tasks(rng)
+    cells = sum(q.size * s.size for q, s in tasks)
+    t0 = phase(f"SW kernel vs plain at ANIb's shape: 1024 tasks, {cells} cells")
+    packed = [t.cuda() for t in sw.pack_tasks(tasks)]
+    out = sw.sw_cuda(*packed)  # warm
+    torch.cuda.synchronize()
+    reps = 10
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        sw.sw_cuda(*packed)
+    stop.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(stop) / reps
+    got = [tuple(r) for r in out.cpu().tolist()]
+
+    t1 = time.monotonic()
+    sw.batch_sw_best_cuda(tasks)
+    wrapper_ms = (time.monotonic() - t1) * 1e3
+    t1 = time.monotonic()
+    plain = sw.batch_sw_best_reference(tasks)
+    plain_ms = (time.monotonic() - t1) * 1e3
+    t1 = time.monotonic()
+    host = sw.batch_sw_best_host(tasks, workers=workers)
+    host_ms = (time.monotonic() - t1) * 1e3
+    if got != plain or got != host:
+        raise AssertionError("SW kernel disagrees with the plain version at ANIb's shape")
+    err = max(err, max_abs_err(got, plain))
+    print(f"   identical tuples on all 1024 tasks; max_abs_err {err}")
+    print(f"   kernel ms per launch (CUDA events, mean of {reps}): {kernel_ms:.4f}"
+          f" ({cells / kernel_ms / 1e6:.2f} G cell updates/s)")
+    print(f"   kernel wrapper ms incl. packing and copies (host clock): {wrapper_ms:.3f}")
+    print(f"   plain PyTorch ms on the CPU (host clock, one run): {plain_ms:.1f}")
+    print(f"   native score + stats DPs ms, {workers} threads (host clock): {host_ms:.1f}")
+    done("SW timing", t0)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+
 def comparison_rows(db: Path) -> list[tuple]:
     with sqlite3.connect(db) as conn:
         return conn.execute(
@@ -185,71 +341,86 @@ def comparison_rows(db: Path) -> list[tuple]:
         ).fetchall()
 
 
-def run_method(ext, runner, logger, work: Path, fasta: Path, method: str,
-               tag: str, *, host: bool) -> tuple[list[tuple], int]:
-    """One run through the port's runner; returns (rows, kernel launches)."""
+def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
+               tag: str, *, host_env: dict[str, str] | None) -> tuple[list[tuple], int]:
+    """One run through the port's runner with `kernel`'s launch counts
+    zeroed just before it; `host_env` sends the work to the native host
+    kernels instead. Returns (rows, kernel launches)."""
+    from pyani_plus_tpu.utils import devmeter
+
     db = work / f"{tag}.db"
-    env = "PYANI_TPU_EXTEND_BATCH_MIN"
-    if host:  # above every batch: all extensions on the native host kernel
-        os.environ[env] = str(1 << 40)
-    ext.reset_counts()
-    t0 = phase(f"{method} {tag}: {'native host' if host else 'CUDA kernel'} extensions")
-    window = ext.devmeter.reset()
+    host_env = host_env or {}
+    os.environ.update(host_env)
+    kernel.reset_counts()
+    t0 = phase(f"{method} {tag}: {'native host' if host_env else 'CUDA kernel'}")
+    window = devmeter.reset()
     try:
         runner.start_and_run_method(logger, db, fasta, method, create_db=True)
     finally:
-        os.environ.pop(env, None)
-    launches, tasks = ext.LAUNCHES, ext.TASKS
-    busy = ext.devmeter.busy_fraction(window)
+        for key in host_env:
+            os.environ.pop(key, None)
+    launches, tasks = kernel.LAUNCHES, kernel.TASKS
+    busy = devmeter.busy_fraction(window)
     done(tag, t0)
     print(f"   kernel launches {launches}, tasks through the kernel {tasks}")
     print(f"   device busy share (devmeter, submit to sync of each launch): {busy:.4f}")
     return comparison_rows(db), launches
 
 
-def check_main_path(ext) -> int:
-    """Phase 4: ANIm all-vs-all and a dnadiff pair, kernel vs host rows."""
-    from pyani_plus_tpu_torch.parallel import runner
-    from pyani_plus_tpu_torch.synthetic import write_genome_dir
+def check_identity_order(method: str, rows: list[tuple]) -> None:
+    identity = {(Path(q).stem, Path(s).stem): r[0] for q, s, *r in rows}
+    for key in sorted(identity):
+        print(f"   {method} identity {key[0]} vs {key[1]}: {identity[key]!r}")
+    # more substitutions, lower identity
+    if not identity[("genome_0", "genome_1")] > identity[("genome_0", "genome_2")]:
+        raise AssertionError(f"{method} identities are out of order")
 
-    logger = logging.getLogger("chip_smoke")
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    try:
-        t0 = phase(f"write {len(RATES)} genomes of {GENOME_LENGTH} bp")
-        paths = write_genome_dir(work / "genomes", GENOME_LENGTH, RATES, SEED)
-        done("genomes", t0)
 
-        rows, launches = run_method(ext, runner, logger, work, work / "genomes",
-                                    "ANIm", "anim_kernel", host=False)
-        if launches == 0:
-            raise AssertionError("the ANIm run never launched the kernel")
-        host_rows, host_launches = run_method(ext, runner, logger, work,
-                                              work / "genomes", "ANIm",
-                                              "anim_host", host=True)
-        check_rows("ANIm", rows, host_rows, len(RATES) ** 2)
-        if host_launches:
-            raise AssertionError("the host run launched the kernel")
-        identity = {(Path(q).stem, Path(s).stem): r[0] for q, s, *r in rows}
-        for key in sorted(identity):
-            print(f"   ANIm identity {key[0]} vs {key[1]}: {identity[key]!r}")
-        # more substitutions, lower identity
-        if not identity[("genome_0", "genome_1")] > identity[("genome_0", "genome_2")]:
-            raise AssertionError("ANIm identities are out of order")
+def check_anim_path(ext, runner, logger, work: Path, paths: list[Path]) -> int:
+    """Phase 5: ANIm all-vs-all and a dnadiff pair, kernel vs host rows."""
+    # above every batch: all extensions on the native host kernel
+    host_env = {"PYANI_TPU_EXTEND_BATCH_MIN": str(1 << 40)}
+    genomes = paths[0].parent
+    rows, launches = run_method(ext, runner, logger, work, genomes, "ANIm",
+                                "anim_kernel", host_env=None)
+    if launches == 0:
+        raise AssertionError("the ANIm run never launched the kernel")
+    host_rows, host_launches = run_method(ext, runner, logger, work, genomes,
+                                          "ANIm", "anim_host", host_env=host_env)
+    check_rows("ANIm", rows, host_rows, len(RATES) ** 2)
+    if host_launches:
+        raise AssertionError("the host run launched the kernel")
+    check_identity_order("ANIm", rows)
 
-        pair = work / "pair"
-        pair.mkdir()
-        for path in paths[:2]:
-            shutil.copy(path, pair / path.name)
-        rows2, launches2 = run_method(ext, runner, logger, work, pair,
-                                      "dnadiff", "dnadiff_kernel", host=False)
-        host2, _ = run_method(ext, runner, logger, work, pair, "dnadiff",
-                              "dnadiff_host", host=True)
-        check_rows("dnadiff", rows2, host2, 4)
-        if launches2 == 0:
-            raise AssertionError("the dnadiff run never launched the kernel")
-        return launches
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    pair = work / "pair"
+    pair.mkdir()
+    for path in paths[:2]:
+        shutil.copy(path, pair / path.name)
+    rows2, launches2 = run_method(ext, runner, logger, work, pair, "dnadiff",
+                                  "dnadiff_kernel", host_env=None)
+    host2, _ = run_method(ext, runner, logger, work, pair, "dnadiff",
+                          "dnadiff_host", host_env=host_env)
+    check_rows("dnadiff", rows2, host2, 4)
+    if launches2 == 0:
+        raise AssertionError("the dnadiff run never launched the kernel")
+    return launches
+
+
+def check_anib_path(sw, runner, logger, work: Path, paths: list[Path]) -> int:
+    """Phase 6: ANIb all-vs-all, kernel scoring vs the native host scorer."""
+    genomes = paths[0].parent
+    rows, launches = run_method(sw, runner, logger, work, genomes, "ANIb",
+                                "anib_kernel", host_env=None)
+    if launches == 0:
+        raise AssertionError("the ANIb run never launched the kernel")
+    host_rows, host_launches = run_method(sw, runner, logger, work, genomes, "ANIb",
+                                          "anib_host",
+                                          host_env={"PYANI_TPU_ANIB_DEVICE": "0"})
+    check_rows("ANIb", rows, host_rows, len(RATES) ** 2)
+    if host_launches:
+        raise AssertionError("the ANIb host run launched the kernel")
+    check_identity_order("ANIb", rows)
+    return launches
 
 
 def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int) -> None:
@@ -264,6 +435,22 @@ def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int) ->
     print(f"   {method}: {count} rows, kernel run == host run (ints exact, floats ==)")
 
 
+def build_kernels(_build) -> None:
+    """Phase 2: one nvcc for each kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = phase("build")
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(_build.load_library, KERNELS))
+    for name in KERNELS:
+        seconds, ptxas = _build.BUILD_INFO[name]
+        print(f"   {name}: nvcc build seconds (set-up): {seconds:.3f}")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"   {name}: {line.strip()}")
+    done("build", t0)
+
+
 def main() -> int:
     import torch
 
@@ -273,6 +460,9 @@ def main() -> int:
     from pyani_plus_tpu_torch import backend
     from pyani_plus_tpu_torch.ops import _build
     from pyani_plus_tpu_torch.ops import extend as ext
+    from pyani_plus_tpu_torch.ops import sw
+    from pyani_plus_tpu_torch.parallel import runner
+    from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
     t0 = phase("probe")
     report = backend.probe()
@@ -284,30 +474,35 @@ def main() -> int:
         raise SystemExit("nvidia-smi gave no name and power limit for the card")
     done("probe", t0)
 
-    t0 = phase("build")
-    ext._kernel_library()
-    seconds, ptxas = _build.BUILD_INFO["extend"]
-    print(f"   nvcc build seconds (set-up): {seconds:.3f}")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"   {line.strip()}")
-    done("build", t0)
+    build_kernels(_build)
+    timing = {"extend": check_kernel(torch, ext), "sw": check_sw_kernel(torch, sw)}
 
-    timing = check_kernel(torch, ext)
-    launches = check_main_path(ext)
+    logger = logging.getLogger("chip_smoke")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        t0 = phase(f"write {len(RATES)} genomes of {GENOME_LENGTH} bp")
+        paths = write_genome_dir(work / "genomes", GENOME_LENGTH, RATES, SEED)
+        done("genomes", t0)
+        launches = {
+            "extend": check_anim_path(ext, runner, logger, work, paths),
+            "sw": check_anib_path(sw, runner, logger, work, paths),
+        }
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     record = {
         "kernels": [
             {
-                "name": "extend",
+                "name": name,
                 "route": "cuda",
-                "source": KERNEL_SOURCE,
-                "replaces": KERNEL_REPLACES,
-                "launches": launches,
-                **timing,
+                "source": source,
+                "replaces": replaces,
+                "launches": launches[name],
+                **timing[name],
             }
+            for name, (source, replaces) in KERNELS.items()
         ]
     }
     print(json.dumps(record))

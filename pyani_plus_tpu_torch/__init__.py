@@ -13,7 +13,7 @@ Layout:
 - ``backend.py``  -- explicit CUDA/nvcc/device probe
 - ``csrc/``       -- the hand-written CUDA kernels
 - ``ops/``        -- kernel builds, wrappers and their plain PyTorch versions
-- ``methods/``    -- the ported methods (ANIm, dnadiff)
+- ``methods/``    -- the ported methods (ANIm, dnadiff, ANIb)
 - ``parallel/``   -- the run driver
 - ``cli/``        -- the ``pyani-plus-tpu-torch`` command line
 """

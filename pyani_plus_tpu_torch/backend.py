@@ -109,6 +109,6 @@ def probe() -> DeviceReport:
     return report
 
 
-def extension_device() -> torch.device:
-    """Where batched extensions run: the card when CUDA is present."""
+def kernel_device() -> torch.device:
+    """Where the batched kernels run: the card when CUDA is present."""
     return torch.device("cuda") if probe().cuda else torch.device("cpu")

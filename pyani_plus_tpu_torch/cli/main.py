@@ -1,6 +1,6 @@
 """The ``pyani-plus-tpu-torch`` command line application.
 
-The ported methods (``anim``, ``dnadiff``) and ``resume`` run through
+The ported methods (``anim``, ``dnadiff``, ``anib``) and ``resume`` run through
 the port's runner; the report commands carry no JAX and are the JAX
 package's own, added to this group as they are. Flags and output match
 ``pyani-plus-tpu``, so a run of either package can be listed, exported,
@@ -121,6 +121,33 @@ def dnadiff_cmd(  # noqa: PLR0913
         cache=cache,
         log=log,
         debug=debug,
+    )
+
+
+@app.command(name="anib")
+@common_run_options
+@click.option("--fragsize", default=1020, show_default=True, help="Fragment length")
+def anib_cmd(  # noqa: PLR0913
+    fasta: Path,
+    database: Path,
+    name: str | None,
+    create_db: bool,
+    cache: Path | None,
+    log: Path | None,
+    debug: bool,
+    fragsize: int,
+) -> None:
+    """Fragment-alignment ANI (BLAST/ANIb-equivalent, CUDA Smith-Waterman)."""
+    _run_method(
+        "ANIb",
+        fasta,
+        database,
+        name=name,
+        create_db=create_db,
+        cache=cache,
+        log=log,
+        debug=debug,
+        fragsize=fragsize,
     )
 
 

@@ -18,6 +18,7 @@ __all__ = ["ComputeContext", "get_method", "method_names", "run_pairwise"]
 _MODULES = {
     "ANIm": "anim",
     "dnadiff": "dnadiff",
+    "ANIb": "anib",
 }
 
 

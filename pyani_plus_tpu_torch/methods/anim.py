@@ -119,7 +119,7 @@ def _run_extensions(
             device_idx,
             batch_extend(
                 device_tasks,
-                backend.extension_device(),
+                backend.kernel_device(),
                 stop_rows=3 * EXT_BREAKLEN,
             ),
         ):

@@ -35,7 +35,10 @@ NVCC_FLAGS = [
     "-v",
 ]
 
-_LOCK = threading.Lock()  # run_pairwise calls in from a thread pool
+# One lock per library: pair threads call in from a pool, and different
+# libraries build at the same time (one nvcc each).
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (build seconds, 0.0 when the library was already built;
 # ptxas report of registers, shared memory and spills)
@@ -49,7 +52,9 @@ def library_path(name: str) -> Path:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -32,15 +32,14 @@ import torch
 
 from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, NEG, OPEN
 from pyani_plus_tpu.utils import devmeter
-from pyani_plus_tpu_torch import backend
 from pyani_plus_tpu_torch.ops._build import load_library
+from pyani_plus_tpu_torch.ops._tasks import Task, check_packed, pack_tasks
 
 BAND = 60  # csrc/extend.cu is laid out for this band: 4 columns x 32 lanes
 WIDTH = 2 * BAND + 1  # 121 live band columns
 LANE = 128  # band columns padded to one warp's 32 lanes x 4
 STOP_ROWS = 600  # give-up rule: 3 * anim.EXT_BREAKLEN
 
-Task = tuple[np.ndarray, np.ndarray]
 Result = tuple[int, int, int, int, int]
 
 # Kernel launches and tasks sent through them, counted where the kernel
@@ -57,24 +56,6 @@ def reset_counts() -> None:
         TASKS = 0
 
 
-def pack_tasks(tasks: list[Task]) -> tuple[torch.Tensor, ...]:
-    """Ragged tasks as flat CPU tensors: (a_all, b_all) uint8 codes,
-    (a_off, b_off) int64 start offsets and (m, n) int32 lengths."""
-    m = np.array([a.size for a, _ in tasks], dtype=np.int32)
-    n = np.array([b.size for _, b in tasks], dtype=np.int32)
-    a_off = np.zeros(len(tasks), dtype=np.int64)
-    b_off = np.zeros(len(tasks), dtype=np.int64)
-    a_off[1:] = np.cumsum(m[:-1], dtype=np.int64)
-    b_off[1:] = np.cumsum(n[:-1], dtype=np.int64)
-    # a spare byte keeps each buffer non-empty when every task is empty
-    spare = np.zeros(1, np.uint8)
-    a_all = np.concatenate([*(np.asarray(a, np.uint8) for a, _ in tasks), spare])
-    b_all = np.concatenate([*(np.asarray(b, np.uint8) for _, b in tasks), spare])
-    return tuple(
-        torch.from_numpy(x) for x in (a_all, b_all, a_off, b_off, m, n)
-    )
-
-
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("extend")
     if lib.extend_launch.argtypes is None:
@@ -85,11 +66,6 @@ def _kernel_library() -> ctypes.CDLL:
         lib.extend_error_string.restype = ctypes.c_char_p
         lib.extend_error_string.argtypes = [ctypes.c_int]
     return lib
-
-
-_PACKED_DTYPES = (
-    torch.uint8, torch.uint8, torch.int64, torch.int64, torch.int32, torch.int32
-)
 
 
 def extend_cuda(
@@ -109,25 +85,8 @@ def extend_cuda(
     not take, and when the launch is refused.
     """
     global LAUNCHES, TASKS
-    packed = (a_all, b_all, a_off, b_off, m, n)
+    nb = check_packed("extend_cuda", (a_all, b_all, a_off, b_off, m, n))
     device = m.device
-    for t, dtype in zip(packed, _PACKED_DTYPES):
-        if t.device != device or device.type != "cuda":
-            msg = f"extend_cuda needs every tensor on one CUDA device, got {t.device}"
-            raise ValueError(msg)
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            msg = f"extend_cuda needs contiguous 1-D {dtype}, got {t.dtype} {tuple(t.shape)}"
-            raise ValueError(msg)
-    nb = m.numel()
-    if not (n.numel() == a_off.numel() == b_off.numel() == nb):
-        raise ValueError("extend_cuda: m, n and the offsets differ in length")
-    report = backend.probe()
-    if not report.kernels_supported:
-        msg = (
-            f"the extension kernel is built for sm_90a; this device is "
-            f"{report.device_name} with capability {report.capability}"
-        )
-        raise RuntimeError(msg)
     out = torch.empty((nb, 5), dtype=torch.int32, device=device)
     if nb == 0:
         return out

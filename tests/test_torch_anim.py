@@ -156,15 +156,15 @@ def test_default_batch_threshold_follows_backend(monkeypatch) -> None:
     monkeypatch.delenv("PYANI_TPU_EXTEND_BATCH_MIN", raising=False)
     expected = anim.EXT_BATCH_MIN_CUDA if backend.probe().cuda else anim.EXT_BATCH_MIN
     assert anim._default_ext_batch_min() == expected
-    assert backend.extension_device().type == ("cuda" if backend.probe().cuda else "cpu")
+    assert backend.kernel_device().type == ("cuda" if backend.probe().cuda else "cpu")
 
 
 def test_registry_and_configuration() -> None:
-    assert methods.method_names() == ["ANIm", "dnadiff"]
+    assert methods.method_names() == ["ANIm", "dnadiff", "ANIb"]
     assert methods.get_method("ANIm") is anim
     assert methods.get_method("dnadiff") is dnadiff
     with pytest.raises(ValueError, match="not ported.*ANIm"):
-        methods.get_method("ANIb")
+        methods.get_method("sourmash")
     assert anim.configuration() == jax_anim.configuration()
     assert anim.configuration(mode="maxmatch") == jax_anim.configuration(mode="maxmatch")
     assert dnadiff.configuration() == jax_dnadiff.configuration()

@@ -27,7 +27,7 @@ from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
 REPO = Path(__file__).resolve().parents[1]
 APPS = {"jax": jax_app, "torch": torch_app}
-METHODS = {"anim": "ANIm", "dnadiff": "dnadiff"}
+METHODS = {"anim": "ANIm", "dnadiff": "dnadiff", "anib": "ANIb"}
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +106,7 @@ def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path)
     """The report commands are the JAX package's own; a run of a method
     the port lacks cannot be resumed by it."""
     assert set(torch_app.commands) == {
-        "anim", "dnadiff", "resume", "list-runs", "delete-run", "export-run",
+        "anim", "dnadiff", "anib", "resume", "list-runs", "delete-run", "export-run",
         "classify", "plot-run", "plot-run-comp", "export-comparisons",
         "import-comparisons",
     }  # fmt: skip
@@ -121,26 +121,33 @@ def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path)
 
 
 def test_port_runs_without_jax(tmp_path: Path) -> None:
-    """A CPU ANIm pair through the port, with the batched (plain PyTorch)
-    extension path forced, never imports jax. A subprocess, because the
-    test session itself imports jax (tests/conftest.py)."""
+    """A CPU ANIm pair and a CPU ANIb pair through the port, with the
+    batched (plain PyTorch) extension and Smith-Waterman paths forced,
+    never import jax. A subprocess, because the test session itself
+    imports jax (tests/conftest.py)."""
     fastas = write_genome_dir(tmp_path, 30_000, [0.05, 0.12], seed=3)
     code = f"""
 import json, sys
 from pyani_plus_tpu.genomes import load_genome
 import pyani_plus_tpu_torch.cli.main
 import pyani_plus_tpu_torch.parallel.runner
-from pyani_plus_tpu_torch.methods import anim
-batches = []
+from pyani_plus_tpu.ops.seeds import SeedIndex
+from pyani_plus_tpu_torch.methods import anib, anim
+batches, sw_batches = [], []
 real = anim.batch_extend
 anim.batch_extend = lambda tasks, device, **kw: batches.append(len(tasks)) or real(tasks, device, **kw)
+real_sw = anib.batch_sw_best
+anib.batch_sw_best = lambda tasks, device: sw_batches.append(len(tasks)) or real_sw(tasks, device)
 q, s = (load_genome(p) for p in {[str(p) for p in fastas]!r})
 row = anim.compute_pair(q, s)
-print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "batches": batches}}))
+anib_row = anib.compute_pair(q, s, [SeedIndex(r.codes) for r in s.records], 1020)
+print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "batches": batches,
+                  "anib_identity": anib_row[0], "sw_batches": sw_batches}}))
 """
     env = {
         **os.environ,
         "PYANI_TPU_EXTEND_BATCH_MIN": "1",
+        "PYANI_TPU_ANIB_DEVICE": "1",
         "OMP_NUM_THREADS": "1",  # row-serial small tensors
         "PYTHONPATH": os.pathsep.join(
             [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]
@@ -155,3 +162,5 @@ print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "ba
     assert result["jax"] is False
     assert sum(result["batches"]) > 0, result
     assert 0.7 < result["identity"] < 1.0
+    assert sum(result["sw_batches"]) > 0, result
+    assert 0.7 < result["anib_identity"] < 1.0
