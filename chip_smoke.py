@@ -26,10 +26,18 @@ of which raises on failure (so the exit code is not 0):
    CPU production path), rows equal; dnadiff on one divergent pair the
    same way;
 6. ANIb all-vs-all over the same genomes with the scoring on the
-   kernel, rerun with the native host scorer, rows equal.
+   kernel, rerun with the native host scorer, rows equal;
+7. sourmash (no hand-written kernel; the membership Gram and the device
+   sketch are PyTorch on the card): the device Gram on sketch sets that
+   stress exactness against the same function on the CPU and scipy; the
+   Gram at N = 1,000 (about 2 M hashes) timed against scipy; an
+   all-vs-all through the port's runner over 128 genomes of 2.5 Mb in 4
+   clades (above the production threshold for the device Gram), rows
+   equal to the host containment; the device sketch against the native
+   host sketch on the same genomes, hashes bit-identical.
 
-Each main-path run zeroes the kernels' launch counts just before it and
-reads them just after.
+Each main-path run zeroes the launch counts just before it and reads
+them just after.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and the device JSON line.
@@ -37,6 +45,7 @@ limit from nvidia-smi, and the device JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -52,6 +61,9 @@ import numpy as np
 GENOME_LENGTH = 2_000_000  # a small bacterial chromosome
 RATES = [0.02, 0.08, 0.15]
 SEED = 20261016
+CLADES = 4  # sourmash: unrelated ancestors
+CLADE_SIZE = 32  # descendants of each, at 0.5-5% substitutions
+CLADE_LENGTH = 2_500_000
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "extend": ("pyani_plus_tpu_torch/csrc/extend.cu",
                "pyani_plus_tpu/ops/extend_pallas.py:97"),
@@ -435,6 +447,199 @@ def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int) ->
     print(f"   {method}: {count} rows, kernel run == host run (ints exact, floats ==)")
 
 
+@contextlib.contextmanager
+def stage_timers(stages: list[tuple[object, str, str]]):
+    """Time calls of `owner.attr` under `label` for each stage, summed
+    over calls; yields {label: [seconds, calls]} and restores the
+    attributes after."""
+    totals: dict[str, list] = {}
+    saved = []
+    for owner, attr, label in stages:
+        real = getattr(owner, attr)
+        totals[label] = [0.0, 0]
+
+        def timed(*args, _real=real, _label=label, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                totals[_label][0] += time.monotonic() - t0
+                totals[_label][1] += 1
+
+        setattr(owner, attr, timed)
+        saved.append((owner, attr, real))
+    try:
+        yield totals
+    finally:
+        for owner, attr, real in reversed(saved):
+            setattr(owner, attr, real)
+
+
+def check_gram_fuzz(torch, minhash) -> None:
+    """Phase 7a: the device Gram on sketch sets that stress exactness,
+    against the same function on the CPU and the host Gram (scipy)."""
+    from pyani_plus_tpu_torch.synthetic import gram_fuzz_sets
+
+    sets = gram_fuzz_sets(SEED + 2, 70)
+    t0 = phase(f"sourmash Gram fuzz: {len(sets)} sketch sets, blocks of 4096 and 128")
+    for name, sketches in sets.items():
+        host = minhash.intersection_matrix_host(sketches)
+        for block in (4096, 128):
+            got = minhash.intersection_matrix_device(sketches, block=block)
+            torch.cuda.synchronize()
+            cpu = minhash.intersection_matrix_device(sketches, block=block, device="cpu")
+            if not (np.array_equal(got, cpu) and np.array_equal(got, host)):
+                raise AssertionError(f"device Gram differs on set {name!r} at block {block}")
+        off = host[~np.eye(len(sketches), dtype=bool)]
+        print(f"   {name}: {len(sketches)} sketches, {sum(s.num_hashes for s in sketches)} "
+              f"hashes, pair counts {off.min() if off.size else 0}-{off.max() if off.size else 0}:"
+              " card == CPU == scipy")
+    done("Gram fuzz", t0)
+
+
+def check_gram_scale(torch, minhash) -> None:
+    """Phase 7b: the Gram at N = 1,000 on the card against scipy."""
+    from pyani_plus_tpu_torch.synthetic import clade_sketches
+
+    t1 = time.monotonic()
+    sketches = clade_sketches(SEED + 3, 1000, 40)
+    n = len(sketches)
+    total = sum(s.num_hashes for s in sketches)
+    t0 = phase(f"sourmash Gram at scale: {n} sketches in 40 clades, {total} hashes "
+               f"(made in {time.monotonic() - t1:.3f} s)")
+    t1 = time.monotonic()
+    got = minhash.intersection_matrix_device(sketches)
+    call_s = time.monotonic() - t1
+    t1 = time.monotonic()
+    pts = minhash.incidence(sketches, 4096)
+    prep_s = time.monotonic() - t1
+    pts_dev = torch.from_numpy(pts).cuda()
+    minhash.gram(pts_dev, n, 4096)  # warm
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        minhash.gram(pts_dev, n, 4096)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    gram_ms = float(np.median(times))
+    t1 = time.monotonic()
+    host = minhash.intersection_matrix_host(sketches)
+    host_s = time.monotonic() - t1
+    if not np.array_equal(got, host):
+        raise AssertionError("device Gram differs from scipy at N = 1000")
+    blocks = pts.shape[0]
+    flops = 2.0 * n * n * 4096 * blocks
+    print(f"   union blocks of 4096: {blocks}, incidence per block up to {pts.shape[1]}")
+    print(f"   device Gram ms (CUDA events, median of 5): {gram_ms:.3f} "
+          f"(all {[round(t, 3) for t in times]}; {flops / gram_ms / 1e9:.2f} TFLOP/s fp32)")
+    print(f"   union and ids on the host s: {prep_s:.3f}; whole call s (host clock): {call_s:.3f}")
+    print(f"   scipy host Gram s (host clock, one run): {host_s:.3f}; counts equal")
+    done("Gram at scale", t0)
+
+
+def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
+    """Phase 7c: sourmash all-vs-all through the port's runner on 128
+    genomes of 2.5 Mb, rows against the host containment; then the device
+    sketch against the native host sketch on the same genomes."""
+    from pyani_plus_tpu.db import Database, Run
+    from pyani_plus_tpu.genomes import load_genome
+    from pyani_plus_tpu.ops import minhash as host_minhash
+    from pyani_plus_tpu.utils import devmeter
+    from pyani_plus_tpu_torch.methods import sourmash
+    from pyani_plus_tpu_torch.synthetic import write_clade_dir
+
+    rates = [float(r) for r in np.linspace(0.005, 0.05, CLADE_SIZE)]
+    t0 = phase(f"write {CLADES} clades x {CLADE_SIZE} genomes of {CLADE_LENGTH} bp")
+    paths = write_clade_dir(work / "clades", CLADE_LENGTH, CLADES, rates, SEED)
+    done("clade genomes", t0)
+
+    db = work / "sourmash.db"
+    cache = work / "cache"
+    stages = [
+        (runner, "index_fasta_directory", "ingest: index and MD5"),
+        (runner, "_setup_run", "store: genome, configuration and run rows"),
+        (runner, "load_genome", "ingest: load genomes"),
+        (sourmash, "get_sketch", "host sketching (native, .npy cache)"),
+        (minhash, "intersection_matrix_device", "device Gram call"),
+        (minhash, "incidence", "  of which union and ids (host)"),
+        (minhash, "ani_from_counts", "numpy tail"),
+        (Database, "insert_comparisons", "store: comparisons"),
+        (Run, "cache_comparisons", "store: matrix cache"),
+    ]
+    minhash.reset_counts()
+    t0 = phase(f"sourmash all-vs-all: {len(paths)} genomes through the port's runner")
+    window = devmeter.reset()
+    with stage_timers(stages) as totals:
+        runner.start_and_run_method(logger, db, paths[0].parent, "sourmash",
+                                    create_db=True, cache=cache)
+    launches = minhash.LAUNCHES
+    busy = devmeter.busy_fraction(window)
+    done("sourmash run", t0)
+    for label, (seconds, calls) in totals.items():
+        print(f"   stage {label}: {seconds:.3f} s ({calls} calls)")
+    print(f"   device Gram calls on the card: {launches}; "
+          f"device busy share (devmeter): {busy:.4f}")
+
+    with sqlite3.connect(db) as conn:
+        rows = conn.execute(
+            "SELECT query_hash, subject_hash, identity, cov_query FROM comparisons"
+        ).fetchall()
+        clade = {h: Path(p).name.split("_genome")[0]
+                 for h, p in conn.execute("SELECT genome_hash, path FROM genomes")}
+    md5s = sorted(clade)
+    sketch_dir = cache / "sourmash_k=31_scaled=1000"
+    sketches = [host_minhash.Sketch(h, 31, 1000, np.load(sketch_dir / f"{h}.npy")) for h in md5s]
+    total = sum(s.num_hashes for s in sketches)
+    print(f"   {len(md5s)} sketches, {total} hashes "
+          f"({min(s.num_hashes for s in sketches)}-{max(s.num_hashes for s in sketches)} each)")
+    if not (len(md5s) >= 64 and total > 1 << 18):
+        raise AssertionError("the run is below the production threshold for the device Gram")
+    if launches == 0:
+        raise AssertionError("the sourmash run never ran the Gram on the card")
+    identity, cov = host_minhash.containment_ani(sketches, use_device=False)
+    index = {h: i for i, h in enumerate(md5s)}
+    if len(rows) != len(md5s) ** 2:
+        raise AssertionError(f"sourmash: {len(rows)} rows, expected {len(md5s) ** 2}")
+    within = []
+    for q, s, ident, c in rows:
+        i, j = index[q], index[s]
+        expected = tuple(None if np.isnan(v) else float(v) for v in (identity[i, j], cov[i, j]))
+        if (ident, c) != expected:
+            raise AssertionError(f"sourmash row {q} {s}: {(ident, c)} != host {expected}")
+        if (ident is None) != (clade[q] != clade[s]):
+            raise AssertionError(f"sourmash row {q} {s}: identity {ident} across clades")
+        if q == s and ident != 1.0:
+            raise AssertionError(f"sourmash self-row {q}: identity {ident}")
+        if ident is not None and q != s:
+            within.append(ident)
+    print(f"   {len(rows)} rows == host containment (scipy), floats ==; None across clades; "
+          f"1.0 on the diagonal; identity within clades {min(within):.6f}-{max(within):.6f}")
+
+    t0 = phase(f"device sketch vs native host sketch on {len(paths)} genomes")
+    genomes = [load_genome(p) for p in paths]
+    t1 = time.monotonic()
+    host = [host_minhash.sketch_genome(g, 31, 1000) for g in genomes]
+    host_s = time.monotonic() - t1
+    minhash.sketch_genomes_device(genomes[:1], 31, 1000)  # warm
+    device_s = []
+    for _ in range(2):
+        t1 = time.monotonic()
+        dev = minhash.sketch_genomes_device(genomes, 31, 1000)
+        device_s.append(time.monotonic() - t1)
+        for g, h, d in zip(genomes, host, dev, strict=True):
+            if not np.array_equal(h.hashes, d.hashes):
+                raise AssertionError(f"device sketch differs from the native sketch on {g.md5}")
+    bases = sum(r.codes.size for g in genomes for r in g.records)
+    print(f"   {bases} bases: native host sketch s (one thread, host clock): {host_s:.3f}")
+    print(f"   device sketch s (host clock, incl. copies and np.unique; two runs): "
+          f"{device_s[0]:.3f}, {device_s[1]:.3f}; hashes bit-identical")
+    done("device sketch", t0)
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -460,6 +665,7 @@ def main() -> int:
     from pyani_plus_tpu_torch import backend
     from pyani_plus_tpu_torch.ops import _build
     from pyani_plus_tpu_torch.ops import extend as ext
+    from pyani_plus_tpu_torch.ops import minhash
     from pyani_plus_tpu_torch.ops import sw
     from pyani_plus_tpu_torch.parallel import runner
     from pyani_plus_tpu_torch.synthetic import write_genome_dir
@@ -487,6 +693,9 @@ def main() -> int:
             "extend": check_anim_path(ext, runner, logger, work, paths),
             "sw": check_anib_path(sw, runner, logger, work, paths),
         }
+        check_gram_fuzz(torch, minhash)
+        check_gram_scale(torch, minhash)
+        check_sourmash_path(minhash, runner, logger, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:

@@ -1,6 +1,6 @@
 """The ``pyani-plus-tpu-torch`` command line application.
 
-The ported methods (``anim``, ``dnadiff``, ``anib``) and ``resume`` run through
+The ported methods (``anim``, ``dnadiff``, ``anib``, ``sourmash``) and ``resume`` run through
 the port's runner; the report commands carry no JAX and are the JAX
 package's own, added to this group as they are. Flags and output match
 ``pyani-plus-tpu``, so a run of either package can be listed, exported,
@@ -148,6 +148,38 @@ def anib_cmd(  # noqa: PLR0913
         log=log,
         debug=debug,
         fragsize=fragsize,
+    )
+
+
+@app.command(name="sourmash")
+@common_run_options
+@click.option(
+    "--scaled", default=1000, show_default=True, help="FracMinHash scaled parameter"
+)
+@click.option("-k", "--kmersize", default=31, show_default=True, help="k-mer size")
+def sourmash_cmd(  # noqa: PLR0913
+    fasta: Path,
+    database: Path,
+    name: str | None,
+    create_db: bool,
+    cache: Path | None,
+    log: Path | None,
+    debug: bool,
+    scaled: int,
+    kmersize: int,
+) -> None:
+    """FracMinHash containment ANI (sourmash-equivalent, Gram on the card)."""
+    _run_method(
+        "sourmash",
+        fasta,
+        database,
+        name=name,
+        create_db=create_db,
+        cache=cache,
+        log=log,
+        debug=debug,
+        kmersize=kmersize,
+        scaled=scaled,
     )
 
 

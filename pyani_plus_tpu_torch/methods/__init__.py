@@ -19,6 +19,7 @@ _MODULES = {
     "ANIm": "anim",
     "dnadiff": "dnadiff",
     "ANIb": "anib",
+    "sourmash": "sourmash",
 }
 
 

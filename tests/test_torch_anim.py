@@ -160,11 +160,11 @@ def test_default_batch_threshold_follows_backend(monkeypatch) -> None:
 
 
 def test_registry_and_configuration() -> None:
-    assert methods.method_names() == ["ANIm", "dnadiff", "ANIb"]
+    assert methods.method_names() == ["ANIm", "dnadiff", "ANIb", "sourmash"]
     assert methods.get_method("ANIm") is anim
     assert methods.get_method("dnadiff") is dnadiff
     with pytest.raises(ValueError, match="not ported.*ANIm"):
-        methods.get_method("sourmash")
+        methods.get_method("fastANI")
     assert anim.configuration() == jax_anim.configuration()
     assert anim.configuration(mode="maxmatch") == jax_anim.configuration(mode="maxmatch")
     assert dnadiff.configuration() == jax_dnadiff.configuration()

@@ -27,7 +27,7 @@ from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
 REPO = Path(__file__).resolve().parents[1]
 APPS = {"jax": jax_app, "torch": torch_app}
-METHODS = {"anim": "ANIm", "dnadiff": "dnadiff", "anib": "ANIb"}
+METHODS = {"anim": "ANIm", "dnadiff": "dnadiff", "anib": "ANIb", "sourmash": "sourmash"}
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,8 @@ def test_cli_export_matches_jax(command: str, genome_dir: Path, tmp_path: Path) 
     outdirs = {}
     for tag, app in APPS.items():
         db = tmp_path / f"{tag}.db"
-        _run_cli(app, [command, str(genome_dir), "-d", str(db), "--create-db"])
+        _run_cli(app, [command, str(genome_dir), "-d", str(db), "--create-db",
+                       "--cache", str(tmp_path / f"cache_{tag}")])  # fmt: skip
         outdirs[tag] = tmp_path / f"out_{tag}"
         _run_cli(app, ["export-run", "-d", str(db), "-o", str(outdirs[tag])])
     method = METHODS[command]
@@ -74,12 +75,23 @@ def test_cli_export_matches_jax(command: str, genome_dir: Path, tmp_path: Path) 
     assert np.isfinite(identity.diagonal()).all()
 
 
-@pytest.mark.parametrize(("first", "second"), [("torch", "jax"), ("jax", "torch")])
-def test_resume_across_packages(first: str, second: str, genome_dir: Path, tmp_path: Path) -> None:
-    """A partial ANIm run of one package completes under the other's
-    ``resume`` (same configuration rows, same version check)."""
+@pytest.mark.parametrize(
+    ("command", "first", "second"),
+    [
+        pytest.param("anim", "torch", "jax", id="torch-jax"),
+        pytest.param("anim", "jax", "torch", id="jax-torch"),
+        pytest.param("sourmash", "torch", "jax", id="sourmash-torch-jax"),
+        pytest.param("sourmash", "jax", "torch", id="sourmash-jax-torch"),
+    ],
+)
+def test_resume_across_packages(
+    command: str, first: str, second: str, genome_dir: Path, tmp_path: Path
+) -> None:
+    """A partial ANIm or sourmash run of one package completes under the
+    other's ``resume`` (same configuration rows, same version check)."""
     db = tmp_path / "ani.db"
-    _run_cli(APPS[first], ["anim", str(genome_dir), "-d", str(db), "--create-db"])
+    cache = ["--cache", str(tmp_path / "cache")]
+    _run_cli(APPS[first], [command, str(genome_dir), "-d", str(db), "--create-db", *cache])
     with Database(db) as store:
         before = {
             (r["query_hash"], r["subject_hash"]): r["identity"]
@@ -90,7 +102,7 @@ def test_resume_across_packages(first: str, second: str, genome_dir: Path, tmp_p
             " (SELECT comparison_id FROM comparisons LIMIT 4)"
         )
         store.execute_with_retries("UPDATE runs SET status='Worker interrupted'")
-    _run_cli(APPS[second], ["resume", "-d", str(db)])
+    _run_cli(APPS[second], ["resume", "-d", str(db), *cache])
     with Database(db) as store:
         run = store.load_run()
         assert run.comparisons_count() == 9
@@ -104,26 +116,28 @@ def test_resume_across_packages(first: str, second: str, genome_dir: Path, tmp_p
 
 def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path) -> None:
     """The report commands are the JAX package's own; a run of a method
-    the port lacks cannot be resumed by it."""
+    the port lacks (fastANI) cannot be resumed by it."""
     assert set(torch_app.commands) == {
-        "anim", "dnadiff", "anib", "resume", "list-runs", "delete-run", "export-run",
+        "anim", "dnadiff", "anib", "sourmash", "resume", "list-runs", "delete-run", "export-run",
         "classify", "plot-run", "plot-run-comp", "export-comparisons",
         "import-comparisons",
     }  # fmt: skip
     for name in ("export-run", "list-runs", "classify"):
         assert torch_app.commands[name] is jax_app.commands[name]
-    db = tmp_path / "sm.db"
-    _run_cli(jax_app, ["sourmash", str(genome_dir), "-d", str(db), "--create-db"])
+    db = tmp_path / "fastani.db"
+    _run_cli(jax_app, ["fastani", str(genome_dir), "-d", str(db), "--create-db",
+                       "--cache", str(tmp_path / "cache")])  # fmt: skip
     with pytest.raises(ValueError, match="not ported"):
         CliRunner().invoke(
-            torch_app, ["resume", "-d", str(db)], catch_exceptions=False
+            torch_app, ["resume", "-d", str(db), "--cache", str(tmp_path / "cache")],
+            catch_exceptions=False,
         )
 
 
 def test_port_runs_without_jax(tmp_path: Path) -> None:
-    """A CPU ANIm pair and a CPU ANIb pair through the port, with the
-    batched (plain PyTorch) extension and Smith-Waterman paths forced,
-    never import jax. A subprocess, because the test session itself
+    """A CPU ANIm pair, a CPU ANIb pair and a sourmash pair through the
+    port, with the batched (plain PyTorch) extension and Smith-Waterman
+    paths and the device Gram forced, never import jax. A subprocess, because the test session itself
     imports jax (tests/conftest.py)."""
     fastas = write_genome_dir(tmp_path, 30_000, [0.05, 0.12], seed=3)
     code = f"""
@@ -141,8 +155,12 @@ anib.batch_sw_best = lambda tasks, device: sw_batches.append(len(tasks)) or real
 q, s = (load_genome(p) for p in {[str(p) for p in fastas]!r})
 row = anim.compute_pair(q, s)
 anib_row = anib.compute_pair(q, s, [SeedIndex(r.codes) for r in s.records], 1020)
+from pyani_plus_tpu.ops.minhash import sketch_genome
+from pyani_plus_tpu_torch.ops.minhash import containment_ani
+sm_identity, _ = containment_ani([sketch_genome(g, 21, 100) for g in (q, s)], use_device=True)
 print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "batches": batches,
-                  "anib_identity": anib_row[0], "sw_batches": sw_batches}}))
+                  "anib_identity": anib_row[0], "sw_batches": sw_batches,
+                  "sourmash_identity": float(sm_identity[0, 1])}}))
 """
     env = {
         **os.environ,
@@ -164,3 +182,4 @@ print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "ba
     assert 0.7 < result["identity"] < 1.0
     assert sum(result["sw_batches"]) > 0, result
     assert 0.7 < result["anib_identity"] < 1.0
+    assert 0.5 < result["sourmash_identity"] < 1.0
