@@ -9,10 +9,13 @@ of which raises on failure (so the exit code is not 0):
 2. build: both kernels (csrc/extend.cu, csrc/sw.cu), one nvcc each, all
    started together, timed;
 3. extension kernel against its plain version: a fuzz set (uneven
-   lengths, N runs, IUPAC codes, tasks past 10,240 and 12,000 rows) must
-   give identical tuples from the kernel, the plain PyTorch version and
-   the native host oracle; then both are timed at ANIm's shape (512
-   tasks of 1,500-3,200 rows, every 8th of 9,900, 12% substitutions);
+   lengths, N runs, IUPAC codes, tasks past 10,240 and 12,000 rows and
+   one past 65,535 rows + columns) must give identical tuples from the
+   kernel, the plain PyTorch version and the native host oracle; then
+   kernel, wrapper, plain version and host kernel are timed at ANIm's
+   shape (512 tasks of 1,500-3,200 rows, every 8th of 9,900, 12%
+   substitutions), and the wrapper against the host kernel over a sweep
+   of batch sizes (the measurement behind EXT_BATCH_MIN_CUDA);
 4. Smith-Waterman kernel against its plain version the same way: a fuzz
    set (the JAX package's SW test shapes, windows of 2,049, 8,192 and
    32,769 columns, N runs, IUPAC letters and padding codes, tasks with
@@ -21,12 +24,13 @@ of which raises on failure (so the exit code is not 0):
    wider);
 5. ANIm all-vs-all over 3 synthetic 2 Mb genomes (one ancestor at 2%,
    8% and 15% substitutions, with indels, N runs and IUPAC letters)
-   through the port's runner with the extensions on the kernel, rerun
-   with every extension on the native host kernel (the JAX package's
-   CPU production path), rows equal; dnadiff on one divergent pair the
-   same way;
+   through the port's runner with the extensions on the kernel; a
+   share of the ordered pairs rerun with every extension on the native
+   host kernel (the CPU production path), rows equal; dnadiff on one
+   divergent pair the same way;
 6. ANIb all-vs-all over the same genomes with the scoring on the
-   kernel, rerun with the native host scorer, rows equal;
+   kernel, a share of the pairs rerun with the native host scorer, rows
+   equal;
 7. sourmash (no hand-written kernel; the membership Gram and the device
    sketch are PyTorch on the card): the device Gram on sketch sets that
    stress exactness against the same function on the CPU and scipy; the
@@ -34,13 +38,17 @@ of which raises on failure (so the exit code is not 0):
    all-vs-all through the port's runner over 128 genomes of 2.5 Mb in 4
    clades (above the production threshold for the device Gram), rows
    equal to the host containment; the device sketch against the native
-   host sketch on the same genomes, hashes bit-identical.
+   host sketch on the same genomes, hashes bit-identical;
+8. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit from nvidia-smi, and the device JSON line.
+The last lines are the kernels' JSON record (each kernel's time beside
+its bound: the larger of its bytes over the card's memory rate and its
+integer operations over the card's instruction rate, both counted from this
+run's inputs), the card's name and power limit from nvidia-smi, and the
+device JSON line.
 """
 
 from __future__ import annotations
@@ -64,6 +72,19 @@ SEED = 20261016
 CLADES = 4  # sourmash: unrelated ancestors
 CLADE_SIZE = 32  # descendants of each, at 0.5-5% substitutions
 CLADE_LENGTH = 2_500_000
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the integer instruction rate taken as one operation per lane per
+# clock, half of the 67 TFLOP/s float32 rate (which counts a fused
+# multiply-add as two).
+MEMORY_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 2
+# Integer operations the algorithm needs per DP cell, counted from each
+# kernel's source: the extension's row spends about 60 on a band column
+# (M, D and I with three payloads, the scan element and the best key);
+# the Smith-Waterman cell about 20 (csrc/sw.cu's own count).
+OPS_PER_CELL = {"extend": 60, "sw": 20}
+BAND_COLUMNS = 121
+SWEEP = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)  # batch sizes of the threshold sweep
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "extend": ("pyani_plus_tpu_torch/csrc/extend.cu",
                "pyani_plus_tpu/ops/extend_pallas.py:97"),
@@ -105,9 +126,10 @@ def fuzz_tasks(rng: np.random.Generator) -> list[tuple[np.ndarray, np.ndarray]]:
         mut = rng.random(b.size) < 0.05
         b[mut] = (b[mut] + 1) % 4
         tasks.append((a, b))
-    # ANIm's longest tails (9,999 + 200 rows) and tasks over 12k rows,
-    # with N runs and IUPAC letters (codes >= 4)
-    for m in (10199, 10199, 12500, 14000):
+    # ANIm's longest tails (9,999 + 200 rows), tasks over 12k rows, and
+    # one past 65,535 rows + columns (the kernel's 32-bit payload
+    # fields), with N runs and IUPAC letters (codes >= 4)
+    for m in (10199, 10199, 12500, 14000, 36000):
         a = rng.integers(0, 4, m).astype(np.uint8)
         b = a.copy()
         mut = rng.random(m) < 0.06
@@ -145,13 +167,40 @@ def max_abs_err(x: list[tuple], y: list[tuple]) -> int:
     return int(np.abs(np.array(x, np.int64) - np.array(y, np.int64)).max())
 
 
+def bound(name: str, cells: int, nbytes: int) -> dict:
+    """The least time the card could take: bytes moved once over the
+    memory rate, or the cells' integer operations over the instruction rate."""
+    bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+    ops_ms = cells * OPS_PER_CELL[name] / INT_OPS_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"   bound: {cells} cells x {OPS_PER_CELL[name]} integer operations = {ops_ms:.4f} ms "
+          f"at {INT_OPS_PER_S:.3e} op/s; {nbytes} bytes = {bytes_ms:.4f} ms at "
+          f"{MEMORY_BYTES_PER_S:.3e} B/s; bound by {by}")
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": by, "library_ms": None}
+
+
+def median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        fn()
+        times.append((time.monotonic() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def check_kernel(torch, ext) -> dict:
     """Phase 3: the extension kernel against its plain version and the
-    host oracle."""
+    host oracle, its times, and the batch-size sweep."""
+    from pyani_plus_tpu_torch.methods import anim
+    from pyani_plus_tpu_torch.utils import intra_pair_workers
+
     rng = np.random.default_rng(SEED)
     tasks = fuzz_tasks(rng)
+    wide = sum(not ext.uses_packed_fields(task) for task in tasks)
     t0 = phase(f"kernel vs plain: fuzz set of {len(tasks)} tasks "
-               f"(longest {max(a.size for a, _ in tasks)} rows)")
+               f"(longest {max(a.size for a, _ in tasks)} rows, {wide} with 32-bit fields)")
+    if not 0 < wide < len(tasks):
+        raise AssertionError("the fuzz set must hold tasks of both payload widths")
     got = ext.batch_extend_cuda(tasks)
     torch.cuda.synchronize()
     plain = ext.batch_extend_reference(tasks)
@@ -167,7 +216,8 @@ def check_kernel(torch, ext) -> dict:
     tasks = main_shape_tasks(rng)
     t0 = phase("kernel vs plain at the main path's shape: 512 tasks, "
                "1500-3200 rows, every 8th 9900 rows, 12% substitutions")
-    packed = [t.cuda() for t in ext.pack_tasks(tasks)]
+    staging, order = ext.pack_tasks(tasks)
+    packed = ext.split_packed(staging.cuda(), len(tasks))
     out = ext.extend_cuda(*packed)  # warm
     torch.cuda.synchronize()
     reps = 10
@@ -179,11 +229,11 @@ def check_kernel(torch, ext) -> dict:
     stop.record()
     torch.cuda.synchronize()
     kernel_ms = start.elapsed_time(stop) / reps
-    got = [tuple(r) for r in out.cpu().tolist()]
+    rows = np.empty((len(tasks), 5), np.int32)
+    rows[order] = out.cpu().numpy()
+    got = [tuple(r) for r in rows.tolist()]
 
-    t1 = time.monotonic()
-    ext.batch_extend_cuda(tasks)
-    wrapper_ms = (time.monotonic() - t1) * 1e3
+    wrapper_ms = median_ms(lambda: ext.batch_extend_cuda(tasks), 5)
     t1 = time.monotonic()
     plain = ext.batch_extend_reference(tasks)
     plain_ms = (time.monotonic() - t1) * 1e3
@@ -194,13 +244,98 @@ def check_kernel(torch, ext) -> dict:
     if got != plain or got != host:
         raise AssertionError("kernel disagrees with the plain version at the main shape")
     err = max(err, max_abs_err(got, plain))
+    # rows the give-up rule lets a task run: 600 past its last improvement
+    run_rows = [min(a.size, r[0] + ext.STOP_ROWS) for (a, _), r in zip(tasks, got)]
+    cells = sum(run_rows) * BAND_COLUMNS
     print(f"   identical tuples on all 512 tasks; max_abs_err {err}")
-    print(f"   kernel ms per launch (CUDA events, mean of {reps}): {kernel_ms:.4f}")
-    print(f"   kernel wrapper ms incl. packing and copies (host clock): {wrapper_ms:.3f}")
+    print(f"   kernel ms per launch (CUDA events, mean of {reps}): {kernel_ms:.4f} "
+          f"({cells / kernel_ms / 1e6:.2f} G cells/s; longest task {max(run_rows)} rows, "
+          f"{kernel_ms * 1e6 / max(run_rows):.1f} ns a row)")
+    print(f"   kernel wrapper ms incl. packing, copies and the event (host clock, "
+          f"median of 5): {wrapper_ms:.3f}")
     print(f"   plain PyTorch ms on the CPU (host clock, one run): {plain_ms:.1f}")
     print(f"   native host kernel ms, {workers} threads (host clock): {host_ms:.1f}")
+    record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+              **bound("extend", cells, staging.numel() + out.numel() * 4)}
+    # the same mix eight times over, 4,096 tasks: several warps share a
+    # scheduler, so the card's rate shows and not one task's latency
+    big = ext.split_packed(ext.pack_tasks(tasks * 8)[0].cuda(), len(tasks) * 8)
+    ext.extend_cuda(*big)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        ext.extend_cuda(*big)
+    stop.record()
+    torch.cuda.synchronize()
+    big_ms = start.elapsed_time(stop) / reps
+    print(f"   kernel ms per launch of {len(tasks) * 8} tasks (the mix eight times, CUDA events, "
+          f"mean of {reps}): {big_ms:.4f} ({8 * cells / big_ms / 1e6:.2f} G cells/s)")
     done("timing", t0)
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+    # Pair threads launch side by side, each on its own stream.
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = phase("4 threads, each one batch of 128 main-shape tasks on its own stream")
+    shares = [tasks[i::4] for i in range(4)]
+    one_ms = median_ms(lambda: ext.batch_extend_cuda(shares[0]), 5)
+    gate = threading.Barrier(4)
+
+    def together(share):
+        gate.wait()  # all four threads submit at once
+        return ext.batch_extend_cuda(share)
+
+    rounds = []
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(7):  # the first rounds make each thread's stream and buffers
+            t1 = time.monotonic()
+            results = list(pool.map(together, shares))
+            rounds.append((time.monotonic() - t1) * 1e3)
+    if [r for share in results for r in share] != [got[i] for s in range(4) for i in range(s, 512, 4)]:
+        raise AssertionError("threaded batches disagree with the single launch")
+    print(f"   one batch alone ms (median of 5): {one_ms:.3f}; four batches from four threads "
+          f"ms (median of the last 5 of 7 rounds): {float(np.median(rounds[2:])):.3f} "
+          f"(all {[round(r, 3) for r in rounds]})")
+    # the kernels alone, from one thread: four streams against one
+    streams = [torch.cuda.Stream() for _ in shares]
+    on_card = [ext.split_packed(ext.pack_tasks(s)[0].cuda(), len(s)) for s in shares]
+    torch.cuda.synchronize()
+
+    def four_kernels(side_by_side: bool) -> None:
+        for stream, views in zip(streams, on_card):
+            with torch.cuda.stream(stream if side_by_side else torch.cuda.current_stream()):
+                ext.extend_cuda(*views)
+        torch.cuda.synchronize()
+
+    print(f"   four kernels of 128 tasks from one thread (host clock to the device's end, "
+          f"median of 5): on four streams {median_ms(lambda: four_kernels(True), 5):.3f} ms, "
+          f"on one stream {median_ms(lambda: four_kernels(False), 5):.3f} ms")
+    done("streams", t0)
+
+    workers = intra_pair_workers()
+    t0 = phase(f"batch-size sweep: wrapper vs native host kernel on {workers} threads "
+               "(host clock, median of 5)")
+    short = [(a[:m], b[:m]) for (a, b), m in zip(tasks, rng.integers(150, 700, len(tasks)))]
+    crossover = 0
+    for mix, pool_tasks in (("main-shape mix", tasks), ("tails of 150-700 rows", short)):
+        wins_from = None
+        for size in SWEEP:
+            batch = pool_tasks[:size]
+            card_ms = median_ms(lambda: ext.batch_extend_cuda(batch), 5)
+            # as _run_extensions runs them: a thread pool only past 4 tasks
+            host_workers = workers if size > 4 else 1
+            host_ms = median_ms(lambda: ext.batch_extend_host(batch, workers=host_workers), 5)
+            wins = card_ms < host_ms
+            wins_from = (wins_from or size) if wins else None
+            print(f"   {mix}, {size:4d} tasks: wrapper {card_ms:9.3f} ms, host kernel "
+                  f"{host_ms:9.3f} ms{'  card wins' if wins else ''}")
+        if wins_from is None:
+            raise AssertionError(f"the card never wins on the {mix}")
+        crossover = max(crossover, wins_from)
+    print(f"   smallest batch from which the card wins at every larger size, both mixes: "
+          f"{crossover}; EXT_BATCH_MIN_CUDA = {anim.EXT_BATCH_MIN_CUDA}")
+    done("sweep", t0)
+    return record
 
 
 def homolog(frag: np.ndarray, rate: float, width: int,
@@ -338,8 +473,11 @@ def check_sw_kernel(torch, sw) -> dict:
     print(f"   kernel wrapper ms incl. packing and copies (host clock): {wrapper_ms:.3f}")
     print(f"   plain PyTorch ms on the CPU (host clock, one run): {plain_ms:.1f}")
     print(f"   native score + stats DPs ms, {workers} threads (host clock): {host_ms:.1f}")
+    nbytes = sum(int(x.numel()) * x.element_size() for x in packed) + out.numel() * 4
+    record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+              **bound("sw", cells, nbytes)}
     done("SW timing", t0)
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+    return record
 
 
 def comparison_rows(db: Path) -> list[tuple]:
@@ -353,15 +491,24 @@ def comparison_rows(db: Path) -> list[tuple]:
         ).fetchall()
 
 
+# The host reruns compute a share of the ordered pairs: the runner's
+# static split of the pair grid (every pair with (q * n + s) % 2 == 1),
+# one pair at a time, so that each pair's thousands of host extensions
+# spread over all cores instead of running on its pair thread alone.
+HOST_SHARE = {"PYANI_TPU_PROCESS_COUNT": "2", "PYANI_TPU_PROCESS_INDEX": "1",
+              "PYANI_TPU_PAIR_WORKERS": "1"}
+
+
 def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
                tag: str, *, host_env: dict[str, str] | None) -> tuple[list[tuple], int]:
     """One run through the port's runner with `kernel`'s launch counts
     zeroed just before it; `host_env` sends the work to the native host
-    kernels instead. Returns (rows, kernel launches)."""
-    from pyani_plus_tpu.utils import devmeter
+    kernels instead, for a share of the pairs. Returns (rows, kernel
+    launches)."""
+    from pyani_plus_tpu_torch.utils import devmeter
 
     db = work / f"{tag}.db"
-    host_env = host_env or {}
+    host_env = {**host_env, **HOST_SHARE} if host_env else {}
     os.environ.update(host_env)
     kernel.reset_counts()
     t0 = phase(f"{method} {tag}: {'native host' if host_env else 'CUDA kernel'}")
@@ -399,7 +546,7 @@ def check_anim_path(ext, runner, logger, work: Path, paths: list[Path]) -> int:
         raise AssertionError("the ANIm run never launched the kernel")
     host_rows, host_launches = run_method(ext, runner, logger, work, genomes,
                                           "ANIm", "anim_host", host_env=host_env)
-    check_rows("ANIm", rows, host_rows, len(RATES) ** 2)
+    check_rows("ANIm", rows, host_rows, len(RATES) ** 2, 4)
     if host_launches:
         raise AssertionError("the host run launched the kernel")
     check_identity_order("ANIm", rows)
@@ -412,7 +559,7 @@ def check_anim_path(ext, runner, logger, work: Path, paths: list[Path]) -> int:
                                   "dnadiff_kernel", host_env=None)
     host2, _ = run_method(ext, runner, logger, work, pair, "dnadiff",
                           "dnadiff_host", host_env=host_env)
-    check_rows("dnadiff", rows2, host2, 4)
+    check_rows("dnadiff", rows2, host2, 4, 2)
     if launches2 == 0:
         raise AssertionError("the dnadiff run never launched the kernel")
     return launches
@@ -428,23 +575,31 @@ def check_anib_path(sw, runner, logger, work: Path, paths: list[Path]) -> int:
     host_rows, host_launches = run_method(sw, runner, logger, work, genomes, "ANIb",
                                           "anib_host",
                                           host_env={"PYANI_TPU_ANIB_DEVICE": "0"})
-    check_rows("ANIb", rows, host_rows, len(RATES) ** 2)
+    check_rows("ANIb", rows, host_rows, len(RATES) ** 2, 4)
     if host_launches:
         raise AssertionError("the ANIb host run launched the kernel")
     check_identity_order("ANIb", rows)
     return launches
 
 
-def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int) -> None:
+def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int,
+               host_count: int) -> None:
     if len(rows) != count:
         raise AssertionError(f"{method}: {len(rows)} rows, expected {count}")
-    if rows != host:  # integers exact, floats ==
-        raise AssertionError(f"{method}: kernel rows differ from host rows")
+    if len(host) != host_count:
+        raise AssertionError(f"{method}: {len(host)} host rows, expected {host_count}")
+    if not any(row[0] != row[1] for row in host):
+        raise AssertionError(f"{method}: the host share holds only self-pairs")
+    by_pair = {row[:2]: row for row in rows}
+    for row in host:  # integers exact, floats ==
+        if by_pair.get(row[:2]) != row:
+            raise AssertionError(f"{method}: kernel row differs from host row {row}")
     for row in rows:
         identity = row[2]
         if identity is None or not 0.5 < identity <= 1.0 or not np.isfinite(identity):
             raise AssertionError(f"{method}: implausible identity in {row}")
-    print(f"   {method}: {count} rows, kernel run == host run (ints exact, floats ==)")
+    print(f"   {method}: {count} rows; the {host_count} pairs rerun on the host kernels "
+          "are equal (ints exact, floats ==)")
 
 
 @contextlib.contextmanager
@@ -545,11 +700,10 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
     """Phase 7c: sourmash all-vs-all through the port's runner on 128
     genomes of 2.5 Mb, rows against the host containment; then the device
     sketch against the native host sketch on the same genomes."""
-    from pyani_plus_tpu.db import Database, Run
-    from pyani_plus_tpu.genomes import load_genome
-    from pyani_plus_tpu.ops import minhash as host_minhash
-    from pyani_plus_tpu.utils import devmeter
+    from pyani_plus_tpu_torch.db import Database, Run
+    from pyani_plus_tpu_torch.genomes import load_genome
     from pyani_plus_tpu_torch.methods import sourmash
+    from pyani_plus_tpu_torch.utils import devmeter
     from pyani_plus_tpu_torch.synthetic import write_clade_dir
 
     rates = [float(r) for r in np.linspace(0.005, 0.05, CLADE_SIZE)]
@@ -592,7 +746,7 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
                  for h, p in conn.execute("SELECT genome_hash, path FROM genomes")}
     md5s = sorted(clade)
     sketch_dir = cache / "sourmash_k=31_scaled=1000"
-    sketches = [host_minhash.Sketch(h, 31, 1000, np.load(sketch_dir / f"{h}.npy")) for h in md5s]
+    sketches = [minhash.Sketch(h, 31, 1000, np.load(sketch_dir / f"{h}.npy")) for h in md5s]
     total = sum(s.num_hashes for s in sketches)
     print(f"   {len(md5s)} sketches, {total} hashes "
           f"({min(s.num_hashes for s in sketches)}-{max(s.num_hashes for s in sketches)} each)")
@@ -600,7 +754,7 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
         raise AssertionError("the run is below the production threshold for the device Gram")
     if launches == 0:
         raise AssertionError("the sourmash run never ran the Gram on the card")
-    identity, cov = host_minhash.containment_ani(sketches, use_device=False)
+    identity, cov = minhash.containment_ani(sketches, use_device=False)
     index = {h: i for i, h in enumerate(md5s)}
     if len(rows) != len(md5s) ** 2:
         raise AssertionError(f"sourmash: {len(rows)} rows, expected {len(md5s) ** 2}")
@@ -622,7 +776,7 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
     t0 = phase(f"device sketch vs native host sketch on {len(paths)} genomes")
     genomes = [load_genome(p) for p in paths]
     t1 = time.monotonic()
-    host = [host_minhash.sketch_genome(g, 31, 1000) for g in genomes]
+    host = [minhash.sketch_genome(g, 31, 1000) for g in genomes]
     host_s = time.monotonic() - t1
     minhash.sketch_genomes_device(genomes[:1], 31, 1000)  # warm
     device_s = []
@@ -698,8 +852,13 @@ def main() -> int:
         check_sourmash_path(minhash, runner, logger, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    t0 = phase("the port stands alone")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pyani_plus_tpu"))
+    if foreign:
+        raise AssertionError(f"the port imported {foreign[:5]}")
+    print("   neither jax nor pyani_plus_tpu is in sys.modules")
+    done("imports", t0)
 
     record = {
         "kernels": [

@@ -1,10 +1,24 @@
 """ANIm: whole-genome alignment ANI, with the extensions on the card.
 
-Port of ``pyani_plus_tpu/methods/anim.py``. Seeding, clustering,
-chaining, gap fills, the 1-to-1 filter and scoring are the JAX package's
-own JAX-free code, imported as they are; this module owns only the call
-chain that reached the Pallas kernel there: ``align_sequences`` ->
-``_run_extensions`` -> the batched free-end extensions, which go to the
+Port of ``pyani_plus_tpu/methods/anim.py`` (nucmer ``--mum`` +
+``delta-filter -1`` equivalent):
+
+1. maximal unique matches (length >= 20) on both strands through a
+   suffix automaton of the reference (``ops/suffix.py``); ``--maxmatch``
+   drops the uniqueness requirement (dnadiff);
+2. mgaps-style clustering (``ops/chaining.py``);
+3. per cluster: consistent anchor chain, banded DP over inter-anchor
+   gaps (``ops/extend_host.py``), banded free-end extension outward from
+   the terminal anchors;
+4. delta-filter -1 analogue: intersection of the best ref-axis and
+   qry-axis chains;
+5. scoring: identity = sum((ref_len + qry_len) - 2*sim) / sum(ref_len +
+   qry_len), aligned bases per genome by interval union, coverage =
+   aligned bases / genome length; no alignments -> all None.
+
+Every stage but one is numpy and C++ on the host, as in the JAX package.
+The call chain that reached the Pallas kernel there, ``align_sequences``
+-> ``_run_extensions`` -> the batched free-end extensions, goes to the
 CUDA kernel (``ops/extend.py``) when CUDA is present and the batch holds
 at least ``EXT_BATCH_MIN_CUDA`` tasks, and to the native host kernel
 otherwise. Both are exact to the integer, so the rows are the JAX
@@ -18,35 +32,24 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from pyani_plus_tpu import native
-from pyani_plus_tpu.genomes import Genome, complement_codes
-from pyani_plus_tpu.methods.anim import (
-    EXT_BAND,
-    EXT_BATCH_MIN,
-    EXT_BREAKLEN,
-    MIN_MATCH,
-    MODE,
-    NAME,
-    PROGRAM,
-    _assemble_alignment,
-    _chain_and_fill,
-    _extension_tasks,
-    configuration,
-    score_alignments,
+from pyani_plus_tpu_torch import __version__, backend, native
+from pyani_plus_tpu_torch.genomes import Genome, complement_codes
+from pyani_plus_tpu_torch.methods import ComputeContext, run_pairwise
+from pyani_plus_tpu_torch.ops.chaining import Alignment, cluster_matches, one_to_one
+from pyani_plus_tpu_torch.ops.extend import (
+    BAND,
+    batch_extend_collect,
+    batch_extend_submit,
 )
-from pyani_plus_tpu.ops.chaining import Alignment, cluster_matches, one_to_one
-from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, OPEN, extend_errors
-from pyani_plus_tpu.ops.suffix import (
+from pyani_plus_tpu_torch.ops.extend_host import extend_errors, gap_errors
+from pyani_plus_tpu_torch.ops.suffix import (
     SEED_CACHE,
     max_matches_indexed,
     maximal_matches,
     mum_matches_indexed,
     seed_index_enabled,
 )
-from pyani_plus_tpu.utils import intra_pair_workers
-from pyani_plus_tpu_torch import backend
-from pyani_plus_tpu_torch.methods import ComputeContext, run_pairwise
-from pyani_plus_tpu_torch.ops.extend import BAND, batch_extend
+from pyani_plus_tpu_torch.utils import intra_pair_workers
 
 __all__ = [
     "MODE",
@@ -58,48 +61,157 @@ __all__ = [
     "configuration",
 ]
 
+NAME = "ANIm"
+PROGRAM = "pyani-plus-tpu-anim"
+
+MIN_MATCH = 20  # nucmer -l default
+MODE = "mum"
+
+
+def configuration(*, mode: str = MODE) -> dict:
+    return {
+        "method": NAME,
+        "program": PROGRAM,
+        "version": __version__,
+        "mode": mode,
+    }
+
+
+def _consistent_chain(
+    r: np.ndarray, q: np.ndarray, ln: np.ndarray
+) -> list[tuple[int, int, int]]:
+    """Longest consistent (both axes increasing) anchor chain by weight."""
+    order = np.argsort(r, kind="stable")
+    anchors = [(int(r[i]), int(q[i]), int(ln[i])) for i in order]
+    n = len(anchors)
+
+    dp = native.anchor_chain_dp_native(r[order], q[order], ln[order])
+    if dp is not None:
+        best, prev = dp
+    else:  # pragma: no cover - no compiler
+        best = [0.0] * n
+        prev = [-1] * n
+        for i in range(n):
+            ri, qi, li = anchors[i]
+            best[i] = float(li)
+            for j in range(i):
+                rj, qj, lj = anchors[j]
+                if (
+                    rj <= ri
+                    and qj <= qi
+                    and rj + lj <= ri + li
+                    and qj + lj <= qi + li
+                ):
+                    cand = best[j] + li
+                    if cand > best[i]:
+                        best[i] = cand
+                        prev[i] = j
+    end = int(np.argmax(best))
+    chain = []
+    while end != -1:
+        chain.append(anchors[end])
+        end = prev[end]
+    return chain[::-1]
+
+
+MAX_EXTENSION = 9999  # postnuc caps outward extension length (fitted
+# against the reference .delta fixtures: both extensions of the rotated
+# viral pair stop at exactly 9999 bases past the terminal anchors)
+
+
+def _chain_and_fill(
+    ref: np.ndarray,
+    qry: np.ndarray,
+    r: np.ndarray,
+    q: np.ndarray,
+    ln: np.ndarray,
+) -> tuple[int, int, int, int, int, int] | None:
+    """Chain one cluster and fill inter-anchor gaps (host phase).
+
+    Returns (errors, nonid, gapcols, rs, qs, prev_re, prev_qe); the
+    outward extensions happen separately so they can batch onto the
+    device.
+    """
+    chain = _consistent_chain(r, q, ln)
+    if not chain:
+        return None
+    errors = 0
+    nonid = 0
+    gapcols = 0
+    rs, qs, l0 = chain[0]
+    prev_re, prev_qe = rs + l0, qs + l0
+    for ri, qi, li in chain[1:]:
+        # Trim anchor start to remove overlap with the previous anchor
+        trim = max(prev_re - ri, prev_qe - qi, 0)
+        ri_t, qi_t = ri + trim, qi + trim
+        if trim >= li:
+            # Anchor fully inside the previous coverage: advancing the
+            # frontier here would let the next gap fill skip bases that
+            # never got alignment columns (undercounting errors vs the
+            # single-path alignment nucmer emits), so drop it outright.
+            continue
+        g_err, g_nid, g_gap = gap_errors(ref[prev_re:ri_t], qry[prev_qe:qi_t])
+        errors += g_err
+        nonid += g_nid
+        gapcols += g_gap
+        prev_re, prev_qe = ri + li, qi + li
+    return errors, nonid, gapcols, rs, qs, prev_re, prev_qe
+
+
+EXT_BAND = 60  # extend_errors' band; the kernel's lanes share it
+EXT_BREAKLEN = 200
+# Smallest batch that goes to the CUDA extension kernel when a card is
+# present. On the H100 the wrapper (pack, one copy, launch, copy back,
+# event) beat the native host kernel, run as _run_extensions runs it,
+# at every batch size from one task up, for tails of 150-700 rows and
+# for ANIm's long tails alike (chip_smoke.py's sweep; PERF.md has the
+# measurements), so every full-band task goes to the card. Without CUDA
+# the native host kernel runs (EXT_BATCH_MIN).
+# PYANI_TPU_EXTEND_BATCH_MIN overrides either, with the JAX package's
+# meaning (small values force the batched path, which on a CPU-only
+# host is the plain PyTorch version).
+EXT_BATCH_MIN_CUDA = 1
+EXT_BATCH_MIN = 1 << 30  # no card: host kernel
+
 if EXT_BAND != BAND:  # pragma: no cover - the kernel's layout fixes the band
     msg = f"the extension kernel is laid out for band {BAND}, ANIm uses {EXT_BAND}"
     raise ImportError(msg)
-
-# Default minimum batch for the CUDA extension kernel when a card is
-# present, carried over from the JAX package's TPU threshold; to be
-# re-chosen from card measurements. Without CUDA the native host kernel
-# runs (EXT_BATCH_MIN). PYANI_TPU_EXTEND_BATCH_MIN overrides either, with
-# the JAX package's meaning (small values force the batched path, which
-# on a CPU-only host is the plain PyTorch version).
-EXT_BATCH_MIN_CUDA = 64
-
-
-def load_native_libraries() -> None:
-    """Build and load the path's native host libraries in this thread.
-
-    The JAX package's loaders mark a library as tried before they build
-    it, so a pair thread that asks while another thread builds gets no
-    library and its caller takes the slower numpy route (for seeding,
-    ``seed_index_enabled`` keeps that answer for the whole process). On
-    a checkout with no library built yet, the pair pool would race into
-    that; loading here first keeps every pair on the native routes.
-    """
-    empty = np.zeros(0, np.int64)
-    native.suffix_array_native(np.zeros(1, np.int64))
-    native.band_dp_native(
-        np.zeros(1, np.uint8), np.zeros(1, np.uint8), BAND, True,
-        MATCH, MISMATCH, OPEN, EXTEND,
-    )  # fmt: skip
-    native.cluster_roots_native(empty, empty, empty, 1, 1, 0.0)
-    seed_index_enabled()
 
 
 def _default_ext_batch_min() -> int:
     return EXT_BATCH_MIN_CUDA if backend.probe().cuda else EXT_BATCH_MIN
 
 
+def _extension_tasks(
+    fill: tuple[int, int, int, int, int, int, int],
+    ref: np.ndarray,
+    qry: np.ndarray,
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The two outward-extension (a, b) tail pairs of one chained cluster."""
+    _err, _nid, _gap, rs, qs, prev_re, prev_qe = fill
+    left_budget = min(rs, MAX_EXTENSION)
+    right_budget = min(ref.size - prev_re, MAX_EXTENSION)
+    return [
+        (
+            ref[rs - left_budget : rs][::-1].copy(),
+            qry[max(0, qs - MAX_EXTENSION) : qs][::-1].copy(),
+        ),
+        (
+            ref[prev_re : prev_re + right_budget].copy(),
+            qry[prev_qe : prev_qe + MAX_EXTENSION].copy(),
+        ),
+    ]
+
+
 def _run_extensions(
     tasks: list[tuple[np.ndarray, np.ndarray]],
 ) -> list[tuple[int, int, int, int, int]]:
     """Batch free-end extensions: the CUDA kernel when CUDA is present and
-    the batch is large, per-task native kernel otherwise. Exact either way."""
+    the batch is large, per-task native kernel otherwise. Exact either way.
+
+    The batch is submitted first and collected last, so the tasks that
+    stay on the host (empty or shorter than the band) run while the card
+    works."""
     device_idx: list[int] = []
     device_tasks: list[tuple[np.ndarray, np.ndarray]] = []
     results: list[tuple[int, int, int, int, int] | None] = [None] * len(tasks)
@@ -108,23 +220,20 @@ def _run_extensions(
     for idx, (a, b) in enumerate(tasks):
         if a.size and b.size:
             # extend_errors' pre-trim; only full-band tasks batch (shorter
-            # ones shrink the band below EXT_BAND, extend.py:285)
+            # ones shrink the band below EXT_BAND in extend_errors)
             limit = min(a.size, b.size) + EXT_BREAKLEN
             a_t, b_t = a[:limit], b[:limit]
             if max(a_t.size, b_t.size) >= EXT_BAND:
                 device_idx.append(idx)
                 device_tasks.append((a_t, b_t))
+    submitted = None
     if len(device_tasks) >= min_batch:
-        for idx, res in zip(
-            device_idx,
-            batch_extend(
-                device_tasks,
-                backend.kernel_device(),
-                stop_rows=3 * EXT_BREAKLEN,
-            ),
-        ):
-            results[idx] = res
-    host_idx = [idx for idx in range(len(tasks)) if results[idx] is None]
+        submitted = batch_extend_submit(
+            device_tasks, backend.kernel_device(), stop_rows=3 * EXT_BREAKLEN
+        )
+        host_idx = sorted(set(range(len(tasks))) - set(device_idx))
+    else:
+        host_idx = list(range(len(tasks)))
     # The native band-DP kernel releases the GIL inside ctypes, so the
     # remaining extensions run thread-parallel across host cores.
     workers = intra_pair_workers()
@@ -138,7 +247,29 @@ def _run_extensions(
     else:
         for idx in host_idx:
             results[idx] = extend_errors(*tasks[idx])
+    if submitted is not None:
+        for idx, res in zip(device_idx, batch_extend_collect(submitted)):
+            results[idx] = res
     return results  # type: ignore[return-value]
+
+
+def _assemble_alignment(
+    fill: tuple[int, int, int, int, int, int, int],
+    ext_left: tuple[int, int, int, int, int],
+    ext_right: tuple[int, int, int, int, int],
+) -> Alignment:
+    errors, nonid, gapcols, rs, qs, prev_re, prev_qe = fill
+    ext_l_r, ext_l_q, ext_l_err, ext_l_nid, ext_l_gap = ext_left
+    ext_r_r, ext_r_q, ext_r_err, ext_r_nid, ext_r_gap = ext_right
+    return Alignment(
+        ref_start=rs - ext_l_r,
+        ref_end=prev_re + ext_r_r,
+        qry_start=qs - ext_l_q,
+        qry_end=prev_qe + ext_r_q,
+        errors=errors + ext_l_err + ext_r_err,
+        gap_columns=gapcols + ext_l_gap + ext_r_gap,
+        nonid=nonid + ext_l_nid + ext_r_nid,
+    )
 
 
 def align_sequences(
@@ -269,8 +400,54 @@ def compute_pair(query: Genome, subject: Genome, mode: str = "mum") -> dict:
     }
 
 
+def _interval_union(intervals: list[tuple[int, int]]) -> int:
+    """Total bases covered by inclusive-coordinate intervals (anim.py:53-69)."""
+    if not intervals:
+        return 0
+    intervals = sorted(intervals)
+    total = 0
+    cur_s, cur_e = intervals[0]
+    for s, e in intervals[1:]:
+        if s <= cur_e:
+            cur_e = max(cur_e, e)
+        else:
+            total += cur_e - cur_s + 1
+            cur_s, cur_e = s, e
+    total += cur_e - cur_s + 1
+    return total
+
+
+def score_alignments(
+    per_seq_alignments: dict[tuple[int, int], list[Alignment]],
+) -> tuple[int | None, int | None, float | None, int | None]:
+    """parse_delta math: (query_aligned, ref_aligned, identity, sim_errors)."""
+    sum_lengths = 0
+    sum_penalty = 0
+    sim_total = 0
+    qry_regions: dict[int, list[tuple[int, int]]] = {}
+    ref_regions: dict[int, list[tuple[int, int]]] = {}
+    for (ref_id, qry_id), blocks in per_seq_alignments.items():
+        for a in blocks:
+            ref_len = a.ref_end - a.ref_start  # == inclusive |e-s|+1
+            qry_len = a.qry_end - a.qry_start
+            sum_lengths += ref_len + qry_len
+            sum_penalty += 2 * a.errors
+            sim_total += a.errors
+            ref_regions.setdefault(ref_id, []).append(
+                (a.ref_start + 1, a.ref_end)
+            )
+            qry_regions.setdefault(qry_id, []).append(
+                (a.qry_start + 1, a.qry_end)
+            )
+    if not sum_lengths:
+        return None, None, None, None
+    identity = (sum_lengths - sum_penalty) / sum_lengths
+    query_aligned = sum(_interval_union(v) for v in qry_regions.values())
+    ref_aligned = sum(_interval_union(v) for v in ref_regions.values())
+    return query_aligned, ref_aligned, identity, sim_total
+
+
 def compute(ctx: ComputeContext) -> list[dict]:
-    load_native_libraries()
     mode = ctx.config.get("mode") or MODE
     return run_pairwise(
         ctx,

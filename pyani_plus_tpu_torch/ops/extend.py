@@ -7,9 +7,15 @@ stop_rows)``: per task ``(a_advance, b_advance, errors, nonid,
 gap_columns)`` of the best free-end extension from the origin, exact to
 the integer.
 
-- ``batch_extend_cuda`` packs the ragged tasks into flat buffers and
-  launches ``csrc/extend.cu`` (one warp per task, any length: no
-  padding ladder and no host fallback for long tasks).
+- ``batch_extend_submit`` / ``batch_extend_collect`` run a list of
+  ragged (a, b) code tails through ``csrc/extend.cu`` (one warp per
+  task, any length: no padding ladder and no host route for long
+  tasks). Submit packs the tasks, longest first, into one page-locked
+  staging buffer, copies it to the card in one transfer, launches the
+  kernel and queues the copy of the results back, all on the calling
+  thread's own stream and without waiting; collect waits for that
+  batch's event only. Pair threads therefore overlap their launches on
+  the card, and a caller can do host work between the two.
 - ``batch_extend_reference`` is the plain PyTorch version: (B, 128)
   int64 band states advanced one row at a time for all tasks together,
   with the I state closed by ``torch.cummax`` and a gather. It always
@@ -18,27 +24,31 @@ the integer.
 - ``batch_extend`` sends a CUDA device to the kernel and the CPU to the
   plain version. Nothing falls back from one to the other.
 
-The scoring constants are imported from the JAX package's host oracle,
-so both packages score with the same numbers by construction.
+The scoring constants are the host oracle's (``ops/extend_host.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, NEG, OPEN
-from pyani_plus_tpu.utils import devmeter
 from pyani_plus_tpu_torch.ops._build import load_library
-from pyani_plus_tpu_torch.ops._tasks import Task, check_packed, pack_tasks
+from pyani_plus_tpu_torch.ops._tasks import Task, check_packed
+from pyani_plus_tpu_torch.ops.extend_host import EXTEND, MATCH, MISMATCH, NEG, OPEN
+from pyani_plus_tpu_torch.utils import devmeter
 
 BAND = 60  # csrc/extend.cu is laid out for this band: 4 columns x 32 lanes
 WIDTH = 2 * BAND + 1  # 121 live band columns
 LANE = 128  # band columns padded to one warp's 32 lanes x 4
 STOP_ROWS = 600  # give-up rule: 3 * anim.EXT_BREAKLEN
+# The kernel packs errors, nonid and gap columns (each <= m + n) into
+# 16-bit fields for a task with m + n up to this, and keeps 32-bit
+# fields for a longer one (csrc/extend.cu PACK_LIMIT).
+PACK_LIMIT = 65535
 
 Result = tuple[int, int, int, int, int]
 
@@ -47,6 +57,12 @@ Result = tuple[int, int, int, int, int]
 LAUNCHES = 0
 TASKS = 0
 _COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()  # .streams: device index -> this thread's stream
+# Packing is a millisecond of Python and numpy under the GIL. Pair threads
+# that pack at the same moment hand the GIL back and forth in 5 ms
+# slices and each takes ten times as long; with this lock they take
+# turns, and the waiting ones leave the GIL alone.
+_PACK_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -66,6 +82,73 @@ def _kernel_library() -> ctypes.CDLL:
         lib.extend_error_string.restype = ctypes.c_char_p
         lib.extend_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def launch_order(tasks: list[Task]) -> np.ndarray:
+    """Task indices in launch order: longest ``a`` (most rows) first, so
+    that the long serial chains start at once and the short tasks fill
+    in behind them; ties keep the caller's order."""
+    rows = np.array([a.size for a, _ in tasks], dtype=np.int64)
+    return np.argsort(-rows, kind="stable")
+
+
+def uses_packed_fields(task: Task) -> bool:
+    """Whether the kernel runs this task with 16-bit payload fields."""
+    return task[0].size + task[1].size <= PACK_LIMIT
+
+
+def pack_tasks(
+    tasks: list[Task], *, pin_memory: bool = False
+) -> tuple[torch.Tensor, np.ndarray]:
+    """Ragged tasks as ONE uint8 staging buffer in launch order, and that
+    order (``order[p]`` is the caller's index of the task at position
+    ``p``). The buffer holds, for B tasks: B int64 offsets of the ``a``
+    codes and B of the ``b`` codes (into the code bytes), B int32 ``m``
+    and B int32 ``n``, then every task's ``a`` codes and every task's
+    ``b`` codes back to back. ``split_packed`` gives the six views.
+
+    ``pin_memory`` packs into page-locked memory, so that one copy to the
+    card with ``non_blocking=True`` neither waits for the stream nor
+    blocks the host.
+    """
+    order = launch_order(tasks)
+    nb = len(tasks)
+    m = np.array([tasks[t][0].size for t in order], dtype=np.int32)
+    n = np.array([tasks[t][1].size for t in order], dtype=np.int32)
+    a_bytes = int(m.sum(dtype=np.int64))
+    b_bytes = int(n.sum(dtype=np.int64))
+    a_off = np.zeros(nb, dtype=np.int64)
+    b_off = np.full(nb, a_bytes, dtype=np.int64)
+    a_off[1:] = np.cumsum(m[:-1], dtype=np.int64)
+    b_off[1:] += np.cumsum(n[:-1], dtype=np.int64)
+    head = 24 * nb
+    # a spare byte keeps the code section non-empty when every task is empty
+    buf = torch.empty(head + a_bytes + b_bytes + 1, dtype=torch.uint8, pin_memory=pin_memory)
+    raw = buf.numpy()
+    raw[: 8 * nb].view(np.int64)[:] = a_off
+    raw[8 * nb : 16 * nb].view(np.int64)[:] = b_off
+    raw[16 * nb : 20 * nb].view(np.int32)[:] = m
+    raw[20 * nb : head].view(np.int32)[:] = n
+    codes = [np.asarray(tasks[t][0], np.uint8) for t in order]
+    codes += [np.asarray(tasks[t][1], np.uint8) for t in order]
+    codes.append(np.zeros(1, np.uint8))
+    np.concatenate(codes, out=raw[head:])
+    return buf, order
+
+
+def split_packed(buf: torch.Tensor, nb: int) -> tuple[torch.Tensor, ...]:
+    """The six views of a staging buffer (on any device) that the kernel
+    takes: (a_all, b_all) uint8 code bytes (the same bytes: the offsets
+    tell them apart), (a_off, b_off) int64 and (m, n) int32."""
+    codes = buf[24 * nb :]
+    return (
+        codes,
+        codes,
+        buf[: 8 * nb].view(torch.int64),
+        buf[8 * nb : 16 * nb].view(torch.int64),
+        buf[16 * nb : 20 * nb].view(torch.int32),
+        buf[20 * nb : 24 * nb].view(torch.int32),
+    )
 
 
 def extend_cuda(
@@ -107,24 +190,83 @@ def extend_cuda(
     return out
 
 
+@dataclass
+class Submitted:
+    """A batch on its way: what ``batch_extend_collect`` waits for."""
+
+    out: torch.Tensor | list[Result]  # pinned (B, 5) int32, or CPU results
+    order: np.ndarray | None  # launch position -> caller's index
+    arrived: torch.cuda.Event | None
+    t_submit: float
+    keep: tuple = ()  # tensors the queued work still reads
+
+
+def _thread_stream(device: torch.device) -> torch.cuda.Stream:
+    """This thread's own stream on ``device`` (made at first use), so that
+    batches of different pair threads run side by side on the card."""
+    streams = _THREAD.__dict__.setdefault("streams", {})
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(device=index)
+    return streams[index]
+
+
+def batch_extend_submit(
+    tasks: list[Task],
+    device: torch.device | str,
+    *,
+    stop_rows: int = STOP_ROWS,
+) -> Submitted:
+    """Start a batch of extensions: the kernel for a CUDA device (queued,
+    not awaited), the plain version for the CPU (computed here)."""
+    device = torch.device(device)
+    t_submit = devmeter.now()
+    if device.type == "cpu":
+        results = batch_extend_reference(tasks, stop_rows=stop_rows)
+        return Submitted(results, None, None, t_submit)
+    if device.type != "cuda":
+        msg = f"no extension path for device {device}"
+        raise ValueError(msg)
+    if not tasks:
+        return Submitted([], None, None, t_submit)
+    with _PACK_LOCK:
+        staging, order = pack_tasks(tasks, pin_memory=True)
+        out = torch.empty((len(tasks), 5), dtype=torch.int32, pin_memory=True)
+    stream = _thread_stream(device)
+    with torch.cuda.stream(stream):
+        on_card = staging.to(device, non_blocking=True)
+        result = extend_cuda(*split_packed(on_card, len(tasks)), stop_rows=stop_rows)
+        out.copy_(result, non_blocking=True)
+        arrived = torch.cuda.Event()
+        arrived.record(stream)
+    return Submitted(out, order, arrived, t_submit, keep=(staging, on_card, result))
+
+
+def batch_extend_collect(state: Submitted) -> list[Result]:
+    """Wait for a submitted batch (its own event, nothing device-wide)
+    and return the results in the caller's task order."""
+    if state.arrived is None:
+        return state.out  # type: ignore[return-value]
+    state.arrived.synchronize()
+    devmeter.record(state.t_submit)
+    rows = np.empty((len(state.order), 5), dtype=np.int32)
+    rows[state.order] = state.out.numpy()
+    state.keep = ()
+    return [tuple(row) for row in rows.tolist()]
+
+
 def batch_extend_cuda(
     tasks: list[Task],
     *,
     stop_rows: int = STOP_ROWS,
     device: torch.device | str = "cuda",
 ) -> list[Result]:
-    """The kernel over a list of (a, b) code tails; one launch."""
+    """The kernel over a list of (a, b) code tails; one launch, awaited."""
     device = torch.device(device)
     if device.type != "cuda":
         msg = f"batch_extend_cuda needs a CUDA device, got {device}"
         raise ValueError(msg)
-    if not tasks:
-        return []
-    packed = [t.to(device) for t in pack_tasks(tasks)]
-    t_submit = devmeter.now()
-    out = extend_cuda(*packed, stop_rows=stop_rows).cpu()  # synchronises
-    devmeter.record(t_submit)
-    return [tuple(row) for row in out.tolist()]
+    return batch_extend_collect(batch_extend_submit(tasks, device, stop_rows=stop_rows))
 
 
 def _pick(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -137,7 +279,7 @@ def batch_extend_reference(
 ) -> list[Result]:
     """Plain PyTorch version of the kernel, on CPU tensors.
 
-    Mirrors the host oracle's recurrences and tie rules (extend.py
+    Mirrors the host oracle's recurrences and tie rules (extend_host.py
     ``_band_dp`` with ``free_end=True``) for all tasks at once, with
     per-task row limits and give-up masks. Each state is one (4, B, 128)
     int64 tensor of (score, errors, nonid, gap columns).
@@ -298,12 +440,12 @@ def _reference_rows(tasks: list[Task], stop_rows: int) -> list[Result]:  # noqa:
 def batch_extend_host(
     tasks: list[Task], *, stop_rows: int = STOP_ROWS, workers: int = 1
 ) -> list[Result]:
-    """The native host kernel, task by task: the JAX package's CPU
-    production path and the oracle both versions above are held to.
-    The kernel releases the GIL, so `workers` threads run tasks at once."""
+    """The native host kernel, task by task: the CPU production path and
+    the oracle both versions above are held to. The kernel releases the
+    GIL, so `workers` threads run tasks at once."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pyani_plus_tpu.native import band_dp_native
+    from pyani_plus_tpu_torch.native import band_dp_native
 
     def one(task: Task) -> Result:
         res = band_dp_native(
@@ -314,15 +456,10 @@ def batch_extend_host(
         i, j, _score, err, nid, gap = res
         return i, j, err, nid, gap
 
-    if not tasks:
-        return []
-    # the first task runs alone: the native library builds and loads on
-    # first use, and that loader is not safe to enter from many threads
-    first = one(tasks[0])
-    if workers <= 1:
-        return [first, *(one(task) for task in tasks[1:])]
+    if workers <= 1 or len(tasks) <= 1:
+        return [one(task) for task in tasks]
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        return [first, *pool.map(one, tasks[1:])]
+        return list(pool.map(one, tasks))
 
 
 def batch_extend(
@@ -332,10 +469,4 @@ def batch_extend(
     stop_rows: int = STOP_ROWS,
 ) -> list[Result]:
     """The kernel for a CUDA device, the plain version for the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return batch_extend_cuda(tasks, stop_rows=stop_rows, device=device)
-    if device.type == "cpu":
-        return batch_extend_reference(tasks, stop_rows=stop_rows)
-    msg = f"no extension path for device {device}"
-    raise ValueError(msg)
+    return batch_extend_collect(batch_extend_submit(tasks, device, stop_rows=stop_rows))

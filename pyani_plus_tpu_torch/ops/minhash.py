@@ -1,9 +1,9 @@
 """FracMinHash containment on the card: the membership Gram and the device sketch.
 
-Port of the device code of ``pyani_plus_tpu/ops/minhash.py``. The
-``Sketch`` type, the host sketch (``sketch_genome``, native C++), the
-host Gram (``intersection_matrix_host``, scipy) and the constants carry
-no JAX and are the JAX package's own, imported.
+Port of ``pyani_plus_tpu/ops/minhash.py``. The ``Sketch`` type, the host
+sketch (``sketch_genome``, native C++ with a numpy route when there is
+no compiler), the host Gram (``intersection_matrix_host``, scipy) and the
+constants are that module's host half, kept as it is there.
 
 - ``intersection_matrix_device``: all-pairs ``|A n B|``. The union of
   hashes is cut into blocks of ``block`` ids; each block's {0,1}
@@ -29,21 +29,16 @@ the CPU. Nothing falls back from one to the other.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from pyani_plus_tpu.genomes import Genome
-from pyani_plus_tpu.ops.minhash import (
-    DEFAULT_KMER,
-    DEFAULT_SCALED,
-    Sketch,
-    intersection_matrix_host,
-    max_hash_for_scaled,
-    sketch_genome,
-)
-from pyani_plus_tpu.utils import devmeter
 from pyani_plus_tpu_torch import backend
+from pyani_plus_tpu_torch.genomes import Genome
+from pyani_plus_tpu_torch.ops.kmers import canonical_kmer_hashes
 from pyani_plus_tpu_torch.ops.murmur3 import murmur64_words, signed64, to_uint64
+from pyani_plus_tpu_torch.utils import devmeter
 
 __all__ = [
     "DEFAULT_KMER",
@@ -52,11 +47,95 @@ __all__ = [
     "containment_ani",
     "intersection_matrix_device",
     "intersection_matrix_host",
+    "max_hash_for_scaled",
     "reset_counts",
     "sketch_genome",
     "sketch_genome_device",
     "sketch_genomes_device",
 ]
+
+DEFAULT_KMER = 31  # ref methods/sourmash.py:31
+DEFAULT_SCALED = 1000  # ref methods/sourmash.py:30
+
+
+def max_hash_for_scaled(scaled: int) -> int:
+    """sourmash's scaled -> max_hash mapping (float64 rounding included).
+
+    Matches the ``max_hash`` recorded in reference fixture .sig files:
+
+    >>> max_hash_for_scaled(300)
+    61489146912365176
+    >>> max_hash_for_scaled(1000)
+    18446744073709552
+    >>> max_hash_for_scaled(1)
+    18446744073709551615
+    """
+    if scaled <= 0:
+        msg = f"scaled must be positive, got {scaled}"
+        raise ValueError(msg)
+    if scaled == 1:
+        return 2**64 - 1
+    return min(int(round(2**64 / scaled, 0)), 2**64 - 1)
+
+
+@dataclass(frozen=True)
+class Sketch:
+    """A FracMinHash sketch: sorted unique retained hashes."""
+
+    md5: str
+    ksize: int
+    scaled: int
+    hashes: np.ndarray  # sorted unique uint64
+
+    @property
+    def num_hashes(self) -> int:
+        return int(self.hashes.size)
+
+
+def sketch_genome(genome: Genome, ksize: int = DEFAULT_KMER, scaled: int = DEFAULT_SCALED) -> Sketch:
+    """FracMinHash sketch of a genome (all sequences pooled).
+
+    Uses the native C++ hashing kernel when available (bit-identical to
+    the numpy path; parity-tested), falling back to numpy otherwise.
+    """
+    from pyani_plus_tpu_torch.native import sketch_codes_native
+
+    max_hash = np.uint64(max_hash_for_scaled(scaled))
+    kept: list[np.ndarray] = []
+    for rec in genome.records:
+        h = sketch_codes_native(rec.codes, ksize, int(max_hash))
+        if h is None:
+            h = canonical_kmer_hashes(rec.codes, ksize)
+            h = h[h <= max_hash]
+        if h.size:
+            kept.append(h)
+    if kept:
+        hashes = np.unique(np.concatenate(kept))
+    else:
+        hashes = np.empty(0, np.uint64)
+    return Sketch(md5=genome.md5, ksize=ksize, scaled=scaled, hashes=hashes)
+
+
+def intersection_matrix_host(sketches: list[Sketch]) -> np.ndarray:
+    """All-pairs |A n B| via sparse matmul on host. Returns (N, N) int64."""
+    from scipy import sparse
+
+    n = len(sketches)
+    if n == 0:
+        return np.zeros((0, 0), dtype=np.int64)
+    all_hashes = np.concatenate([s.hashes for s in sketches]) if any(
+        s.hashes.size for s in sketches
+    ) else np.empty(0, np.uint64)
+    if all_hashes.size == 0:
+        return np.zeros((n, n), dtype=np.int64)
+    _, inverse = np.unique(all_hashes, return_inverse=True)
+    rows = np.repeat(np.arange(n), [s.hashes.size for s in sketches])
+    data = np.ones(all_hashes.size, dtype=np.int64)
+    m = sparse.csr_matrix(
+        (data, (rows, inverse)), shape=(n, int(inverse.max()) + 1 if inverse.size else 1)
+    )
+    return np.asarray((m @ m.T).todense(), dtype=np.int64)
+
 
 # Calls of the device Gram that ran on CUDA (a plain integer;
 # reset_counts() zeroes it).

@@ -18,7 +18,7 @@ code >= 4 never matches: N == N, IUPAC letters and the padding code 5.
 - ``batch_sw_best`` sends a CUDA device to the kernel and the CPU to the
   plain version. Nothing falls back from one to the other.
 
-The scoring constants are the JAX package's (``ops/dp.py``).
+The scoring constants are the host DP's (``ops/dp.py``).
 """
 
 from __future__ import annotations
@@ -29,10 +29,10 @@ import threading
 import numpy as np
 import torch
 
-from pyani_plus_tpu.ops.dp import GAP_EXTEND, GAP_OPEN, NEG, PENALTY, REWARD
-from pyani_plus_tpu.utils import devmeter
 from pyani_plus_tpu_torch.ops._build import load_library
 from pyani_plus_tpu_torch.ops._tasks import Task, check_packed, pack_tasks
+from pyani_plus_tpu_torch.ops.dp import GAP_EXTEND, GAP_OPEN, NEG, PENALTY, REWARD
+from pyani_plus_tpu_torch.utils import devmeter
 
 __all__ = [
     "batch_sw_best",
@@ -207,7 +207,7 @@ def batch_sw_best_host(tasks: list[Task], *, workers: int = 1) -> list[Result]:
     kernels release the GIL, so `workers` threads run tasks at once."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pyani_plus_tpu.native import (
+    from pyani_plus_tpu_torch.native import (
         local_align_score_native,
         local_align_stats_native,
     )
@@ -223,15 +223,10 @@ def batch_sw_best_host(tasks: list[Task], *, workers: int = 1) -> list[Result]:
             return score, 0, 0
         return score, stats[7], stats[9]
 
-    if not tasks:
-        return []
-    # the first task runs alone: the native library builds and loads on
-    # first use, and that loader is not safe to enter from many threads
-    first = one(tasks[0])
-    if workers <= 1:
-        return [first, *(one(task) for task in tasks[1:])]
+    if workers <= 1 or len(tasks) <= 1:
+        return [one(task) for task in tasks]
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        return [first, *pool.map(one, tasks[1:])]
+        return list(pool.map(one, tasks))
 
 
 def batch_sw_best(tasks: list[Task], device: torch.device | str) -> list[Result]:

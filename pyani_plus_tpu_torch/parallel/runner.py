@@ -22,17 +22,29 @@ from typing import Any
 
 import torch
 
-from pyani_plus_tpu import __version__, log_sys_exit
-from pyani_plus_tpu.db import Database, Run
-from pyani_plus_tpu.genomes import Genome, load_genome
-from pyani_plus_tpu.parallel.runner import (
-    _defer_interrupts,
-    _setup_run,
-    index_fasta_directory,
-)
-from pyani_plus_tpu.parallel.tiles import owned_pairs
-from pyani_plus_tpu_torch import backend
+from pyani_plus_tpu_torch import __version__, backend, log_sys_exit
+from pyani_plus_tpu_torch.db import Database, Run
+from pyani_plus_tpu_torch.genomes import Genome, load_genome
 from pyani_plus_tpu_torch.methods import ComputeContext, get_method
+from pyani_plus_tpu_torch.parallel.tiles import owned_pairs
+from pyani_plus_tpu_torch.utils import check_fasta, file_md5sum
+
+
+def index_fasta_directory(
+    logger: logging.Logger, fasta: Path
+) -> dict[str, Path]:
+    """MD5-index a FASTA directory; error on duplicate genome content."""
+    filename_to_hash = {f: file_md5sum(f) for f in check_fasta(logger, fasta)}
+    hash_to_filename: dict[str, Path] = {}
+    for filename, md5 in filename_to_hash.items():
+        if md5 in hash_to_filename:
+            msg = (
+                f"Multiple genomes with same MD5 checksum {md5}:\n"
+                f" - {hash_to_filename[md5]}\n - {filename}"
+            )
+            log_sys_exit(logger, msg)
+        hash_to_filename[md5] = filename
+    return hash_to_filename
 
 
 def start_and_run_method(  # noqa: PLR0913
@@ -78,6 +90,71 @@ def start_and_run_method(  # noqa: PLR0913
         )
     finally:
         db.close()
+
+
+def _setup_run(  # noqa: PLR0913
+    logger: logging.Logger,
+    db: Database,
+    fasta: Path,
+    config: dict[str, Any],
+    hash_to_filename: dict[str, Path],
+    name: str | None,
+    cmdline: str,
+    method_name: str,
+) -> Run:
+    configuration = db.get_or_create_configuration(
+        config["method"],
+        config["program"],
+        config["version"],
+        fragsize=config.get("fragsize"),
+        mode=config.get("mode"),
+        kmersize=config.get("kmersize"),
+        minmatch=config.get("minmatch"),
+        extra=config.get("extra"),
+    )
+    for md5, filename in hash_to_filename.items():
+        genome = load_genome(filename, md5)
+        db.add_genome(md5, str(filename), genome.length, genome.description)
+    n = len(hash_to_filename)
+    return db.add_run(
+        configuration.configuration_id,
+        cmdline,
+        str(fasta),
+        "Initialising",
+        name or f"{n} genomes using {method_name}",
+        [(md5, filename.name) for md5, filename in hash_to_filename.items()],
+    )
+
+
+@contextlib.contextmanager
+def _defer_interrupts(logger: logging.Logger):
+    """Queue SIGINT/SIGTERM for the duration of run finalisation.
+
+    Once the comparisons are computed, persisting them and caching the
+    matrices is strictly better than abandoning the run mid-commit: an
+    interrupt here would leave a fully-computed run stuck "Running"
+    (unresumable work lost to a race). Signals received while deferred
+    are logged after the store is consistent.
+    """
+    received: list[int] = []
+    saved = {}
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            saved[sig] = signal.signal(
+                sig, lambda signum, _frame: received.append(signum)
+            )
+        except ValueError:  # pragma: no cover - non-main thread
+            pass
+    try:
+        yield
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+        if received:  # pragma: no cover - timing dependent
+            logger.warning(
+                "Interrupt received during run finalisation; results were "
+                "already complete and have been persisted"
+            )
 
 
 def _progress(description: str, total: int):

@@ -14,7 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
-from pyani_plus_tpu.ops.minhash import Sketch
+from pyani_plus_tpu_torch.ops.minhash import Sketch
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _IUPAC = np.frombuffer(b"RYKMSWBDHV", dtype=np.uint8)

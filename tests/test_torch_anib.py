@@ -19,12 +19,12 @@ import pytest
 import torch
 
 import pyani_plus_tpu.methods.anib as jax_anib
-from pyani_plus_tpu import native
 from pyani_plus_tpu.genomes import load_genome
 from pyani_plus_tpu.ops.dp import local_align_stats
 from pyani_plus_tpu.ops.seeds import SeedIndex
-from pyani_plus_tpu_torch import backend, methods
+from pyani_plus_tpu_torch import backend, methods, native
 from pyani_plus_tpu_torch.methods import anib
+from pyani_plus_tpu_torch.ops import _build
 from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
 RATES = [0.02, 0.08, 0.15]
@@ -131,20 +131,25 @@ def test_score_device_takes_windows_past_the_jax_limit() -> None:
     assert trimmed == full
 
 
-def test_compute_loads_native_libraries_before_the_pools(genomes, monkeypatch) -> None:
+def test_compute_loads_native_libraries_before_the_pools(
+    genomes, monkeypatch, tmp_path
+) -> None:
     """On a fresh checkout the native libraries build at first use. A
     slow build must not send the scoring and winner-stats pools to the
-    numpy routes: compute loads libalign and libseedjoin first."""
-    for lib in ("align", "seedjoin"):
-        monkeypatch.setattr(native, f"_{lib}_lib", None)
-        monkeypatch.setattr(native, f"_{lib}_tried", False)
-    real_build = native._build
+    numpy routes: the loader holds its lock across build and load, so
+    every pool thread that asks meanwhile waits for libalign and
+    libseedjoin."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    real_compile = _build._compile_host
+    built: list[str] = []
 
-    def slow_build(src, so):
+    def slow_compile(src, so):
         time.sleep(0.5)
-        real_build(src, so)
+        built.append(src.name)
+        return real_compile(src, so)
 
-    monkeypatch.setattr(native, "_build", slow_build)
+    monkeypatch.setattr(_build, "_compile_host", slow_compile)
     loaded: list[object] = []
     for lib in ("align", "seedjoin"):
         real_load = getattr(native, f"_load_{lib}")
@@ -160,6 +165,7 @@ def test_compute_loads_native_libraries_before_the_pools(genomes, monkeypatch) -
     rows = anib.compute(_context(genomes[:2]))
     assert len(rows) == 4
     assert loaded and None not in loaded
+    assert sorted(built) == ["align.cpp", "seedjoin.cpp"]
 
 
 def test_use_device_follows_env_and_backend(monkeypatch) -> None:

@@ -19,11 +19,10 @@ import torch
 
 import pyani_plus_tpu.methods.anim as jax_anim
 import pyani_plus_tpu.methods.dnadiff as jax_dnadiff
-from pyani_plus_tpu import native
 from pyani_plus_tpu.genomes import load_genome
-from pyani_plus_tpu.ops import suffix
 from pyani_plus_tpu_torch import backend, methods
 from pyani_plus_tpu_torch.methods import anim, dnadiff
+from pyani_plus_tpu_torch.ops import _build, suffix
 from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
 RATES = [0.02, 0.08, 0.15]
@@ -52,13 +51,13 @@ def genomes(tmp_path_factory) -> dict[int, list]:
 def batched(monkeypatch) -> list[int]:
     """Force the batched extension path; record each batch's size."""
     sizes: list[int] = []
-    real = anim.batch_extend
+    real = anim.batch_extend_submit
 
     def spy(tasks, device, **kwargs):
         sizes.append(len(tasks))
         return real(tasks, device, **kwargs)
 
-    monkeypatch.setattr(anim, "batch_extend", spy)
+    monkeypatch.setattr(anim, "batch_extend_submit", spy)
     monkeypatch.setenv("PYANI_TPU_EXTEND_BATCH_MIN", "1")
     return sizes
 
@@ -94,22 +93,24 @@ def test_dnadiff_pair_matches_jax(genomes, batched, monkeypatch) -> None:
 
 @pytest.mark.parametrize("module", [anim, dnadiff], ids=["anim", "dnadiff"])
 def test_compute_loads_native_libraries_before_the_pair_pool(
-    genomes, monkeypatch, module
+    genomes, monkeypatch, tmp_path, module
 ) -> None:
     """On a fresh checkout the native libraries build at first use. A
     slow build must not send the pair pool's threads to the numpy
-    seeding route: compute loads the libraries before the pool starts."""
-    for lib in ("suffix", "band", "chain"):
-        monkeypatch.setattr(native, f"_{lib}_lib", None)
-        monkeypatch.setattr(native, f"_{lib}_tried", False)
+    seeding route: the loader holds its lock across build and load, so
+    every thread that asks meanwhile waits for the library."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(suffix, "_NATIVE_SAM_OK", None)
-    real_build = native._build
+    real_compile = _build._compile_host
+    built: list[str] = []
 
-    def slow_build(src, so):
+    def slow_compile(src, so):
         time.sleep(0.5)
-        real_build(src, so)
+        built.append(src.name)
+        return real_compile(src, so)
 
-    monkeypatch.setattr(native, "_build", slow_build)
+    monkeypatch.setattr(_build, "_compile_host", slow_compile)
     numpy_route: list[int] = []
     real_matches = anim.maximal_matches
 
@@ -132,6 +133,10 @@ def test_compute_loads_native_libraries_before_the_pair_pool(
     assert len(rows) == 4
     assert not numpy_route
     assert suffix.seed_index_enabled()
+    # each library was built once, into the build directory, by rename
+    assert sorted(built) == ["band.cpp", "chain.cpp", "suffix.cpp"]
+    assert not list((tmp_path / "build").glob("*.tmp"))
+    assert len(list((tmp_path / "build").glob("lib*-host-*.so"))) == 3
 
 
 def test_run_extensions_matches_jax_host_path(batched, monkeypatch) -> None:

@@ -3,8 +3,8 @@
 Both CLIs run on the same synthetic genomes into separate databases;
 their ``export-run`` tables must be equal (matrices with both axes
 sorted: integer matrices exact, floats equal). A run started by one
-package resumes under the other, and the port runs without importing
-JAX at all.
+package resumes under the other, and the port runs with both ``jax`` and
+the JAX package refused by an import hook.
 """
 
 from __future__ import annotations
@@ -115,15 +115,21 @@ def test_resume_across_packages(
 
 
 def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path) -> None:
-    """The report commands are the JAX package's own; a run of a method
-    the port lacks (fastANI) cannot be resumed by it."""
+    """The report commands are the port's own copies, with the JAX
+    package's options; a run of a method the port lacks (fastANI) cannot
+    be resumed by it."""
     assert set(torch_app.commands) == {
         "anim", "dnadiff", "anib", "sourmash", "resume", "list-runs", "delete-run", "export-run",
         "classify", "plot-run", "plot-run-comp", "export-comparisons",
         "import-comparisons",
     }  # fmt: skip
-    for name in ("export-run", "list-runs", "classify"):
-        assert torch_app.commands[name] is jax_app.commands[name]
+    for name in sorted(set(torch_app.commands) - {"anim", "dnadiff", "anib", "sourmash", "resume"}):
+        mine, theirs = torch_app.commands[name], jax_app.commands[name]
+        assert mine is not theirs
+        assert mine.callback.__module__ == "pyani_plus_tpu_torch.cli.main"
+        assert [(o.name, o.opts, o.default) for o in mine.params] == [
+            (o.name, o.opts, o.default) for o in theirs.params
+        ], name
     db = tmp_path / "fastani.db"
     _run_cli(jax_app, ["fastani", str(genome_dir), "-d", str(db), "--create-db",
                        "--cache", str(tmp_path / "cache")])  # fmt: skip
@@ -134,31 +140,43 @@ def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path)
         )
 
 
+# Refuses any import of jax or of the JAX package, wherever it comes from.
+IMPORT_HOOK = """
+import sys
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "pyani_plus_tpu"):
+            raise ImportError("refused in this test: " + name)
+sys.meta_path.insert(0, _Refuse())
+"""
+
+
 def test_port_runs_without_jax(tmp_path: Path) -> None:
     """A CPU ANIm pair, a CPU ANIb pair and a sourmash pair through the
     port, with the batched (plain PyTorch) extension and Smith-Waterman
-    paths and the device Gram forced, never import jax. A subprocess, because the test session itself
-    imports jax (tests/conftest.py)."""
+    paths and the device Gram forced, import neither jax nor anything of
+    the JAX package: an import hook refuses both. A subprocess, because
+    the test process itself imports them (tests/conftest.py)."""
     fastas = write_genome_dir(tmp_path, 30_000, [0.05, 0.12], seed=3)
-    code = f"""
-import json, sys
-from pyani_plus_tpu.genomes import load_genome
+    code = IMPORT_HOOK + f"""
+import json
 import pyani_plus_tpu_torch.cli.main
 import pyani_plus_tpu_torch.parallel.runner
-from pyani_plus_tpu.ops.seeds import SeedIndex
+from pyani_plus_tpu_torch.genomes import load_genome
 from pyani_plus_tpu_torch.methods import anib, anim
+from pyani_plus_tpu_torch.ops.minhash import containment_ani, sketch_genome
+from pyani_plus_tpu_torch.ops.seeds import SeedIndex
 batches, sw_batches = [], []
-real = anim.batch_extend
-anim.batch_extend = lambda tasks, device, **kw: batches.append(len(tasks)) or real(tasks, device, **kw)
+real = anim.batch_extend_submit
+anim.batch_extend_submit = lambda tasks, device, **kw: batches.append(len(tasks)) or real(tasks, device, **kw)
 real_sw = anib.batch_sw_best
 anib.batch_sw_best = lambda tasks, device: sw_batches.append(len(tasks)) or real_sw(tasks, device)
 q, s = (load_genome(p) for p in {[str(p) for p in fastas]!r})
 row = anim.compute_pair(q, s)
 anib_row = anib.compute_pair(q, s, [SeedIndex(r.codes) for r in s.records], 1020)
-from pyani_plus_tpu.ops.minhash import sketch_genome
-from pyani_plus_tpu_torch.ops.minhash import containment_ani
 sm_identity, _ = containment_ani([sketch_genome(g, 21, 100) for g in (q, s)], use_device=True)
-print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "batches": batches,
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyani_plus_tpu"))
+print(json.dumps({{"loaded": loaded, "identity": row["identity"], "batches": batches,
                   "anib_identity": anib_row[0], "sw_batches": sw_batches,
                   "sourmash_identity": float(sm_identity[0, 1])}}))
 """
@@ -177,9 +195,20 @@ print(json.dumps({{"jax": "jax" in sys.modules, "identity": row["identity"], "ba
     )  # fmt: skip
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert result["jax"] is False
+    assert result["loaded"] == []
     assert sum(result["batches"]) > 0, result
     assert 0.7 < result["identity"] < 1.0
     assert sum(result["sw_batches"]) > 0, result
     assert 0.7 < result["anib_identity"] < 1.0
     assert 0.5 < result["sourmash_identity"] < 1.0
+
+
+def test_versions_agree() -> None:
+    """Configuration rows and the resume check compare the version
+    string, so the two packages must state the same one."""
+    import pyani_plus_tpu
+    import pyani_plus_tpu_torch
+
+    assert pyani_plus_tpu_torch.__version__ == pyani_plus_tpu.__version__
+    assert pyani_plus_tpu_torch.FASTA_EXTENSIONS == pyani_plus_tpu.FASTA_EXTENSIONS
+    assert pyani_plus_tpu_torch.GRAPHICS_FORMATS == pyani_plus_tpu.GRAPHICS_FORMATS
