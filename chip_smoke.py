@@ -19,9 +19,12 @@ of which raises on failure (so the exit code is not 0):
 4. Smith-Waterman kernel against its plain version the same way: a fuzz
    set (the JAX package's SW test shapes, windows of 2,049, 8,192 and
    32,769 columns, N runs, IUPAC letters and padding codes, tasks with
-   no positive cell, fragments past 1,024 rows), then timed at ANIb's
-   shape (1,024 tasks of 1,020-row fragments in windows 300 columns
-   wider);
+   no positive cell, fragments past 1,024 rows, and tasks at each side
+   of the rule that sends a task to packed 16-bit lanes or to 32-bit
+   words, all in the one launch), then timed at ANIb's shape (1,024
+   tasks of 1,020-row fragments in windows 300 columns wider) and at
+   ANIb's launch shape (that mix 32 times over in one launch, shuffled,
+   32,768 tasks);
 5. ANIm all-vs-all over 3 synthetic 2 Mb genomes (one ancestor at 2%,
    8% and 15% substitutions, with indels, N runs and IUPAC letters)
    through the port's runner with the extensions on the kernel; a
@@ -78,12 +81,24 @@ CLADE_LENGTH = 2_500_000
 # multiply-add as two).
 MEMORY_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
-# Integer operations the algorithm needs per DP cell, counted from each
-# kernel's source: the extension's row spends about 60 on a band column
-# (M, D and I with three payloads, the scan element and the best key);
-# the Smith-Waterman cell about 20 (csrc/sw.cu's own count).
-OPS_PER_CELL = {"extend": 60, "sw": 20}
+# Integer instructions the algorithm needs per DP cell. The extension's
+# row spends about 60 on a band column (M, D and I with three payloads,
+# the scan element and the best key). A Smith-Waterman cell needs 3: the
+# recurrence takes six instructions that no layout can spare (F - ge;
+# F = max(H - go - ge, .); G = max(diag + sub, F, 0); one step of E's
+# prefix max; H = max(G, E); the running best), and one instruction of the
+# card does each for two 16-bit cells. The diagonal's shift, the loads,
+# the scan across lanes and the search for the best cell's column are the
+# kernel's own cost, not the work's, and are left out: the bound stays
+# below any kernel's time.
+OPS_PER_CELL = {"extend": 60, "sw": 3}
+# What the 32-bit Smith-Waterman kernel spent on a cell, one cell an
+# instruction: the yardstick of earlier records, printed beside the bound
+# for comparison. The packed kernel spends fewer, so it is no bound.
+SW_OPS_32BIT = 20
 BAND_COLUMNS = 121
+SW_BIG = 32  # the SW kernel's large batch: ANIb's shape this many times
+SW_PACKED_ROWS = 16360  # the longest fragment the SW kernel runs in packed 16-bit lanes
 SWEEP = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)  # batch sizes of the threshold sweep
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "extend": ("pyani_plus_tpu_torch/csrc/extend.cu",
@@ -173,7 +188,7 @@ def bound(name: str, cells: int, nbytes: int) -> dict:
     bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
     ops_ms = cells * OPS_PER_CELL[name] / INT_OPS_PER_S * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"   bound: {cells} cells x {OPS_PER_CELL[name]} integer operations = {ops_ms:.4f} ms "
+    print(f"   bound: {cells} cells x {OPS_PER_CELL[name]} integer instructions = {ops_ms:.4f} ms "
           f"at {INT_OPS_PER_S:.3e} op/s; {nbytes} bytes = {bytes_ms:.4f} ms at "
           f"{MEMORY_BYTES_PER_S:.3e} B/s; bound by {by}")
     return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": by, "library_ms": None}
@@ -398,6 +413,29 @@ def sw_fuzz_tasks(rng: np.random.Generator) -> list[tuple[np.ndarray, np.ndarray
     tasks.append((np.full(300, 4, np.uint8), rng.integers(0, 4, 600).astype(np.uint8)))
     tasks.append((np.zeros(200, np.uint8), np.full(500, 1, np.uint8)))
     tasks.append((np.full(100, 5, np.uint8), np.full(100, 5, np.uint8)))
+    # both sides of the kernel's width rule (packed 16-bit lanes up to
+    # min(m, n) = 16,360), in the one launch: a perfect copy that ends in a
+    # lane's last column, which is the largest value a packed word is asked
+    # to hold (score 32,720 plus the E scan's offset of 46); and on the
+    # 32-bit path one row more, a homolog; a fragment longer than its
+    # window; N runs and padding codes; and a task with no positive cell.
+    # A generator of their own leaves `rng` where it was, so the main
+    # shape's tasks stay those of earlier runs.
+    own = np.random.default_rng(SEED + 4)
+    q = own.integers(0, 4, SW_PACKED_ROWS).astype(np.uint8)
+    flanks = own.integers(0, 4, (2, 56)).astype(np.uint8)  # 56 + 16,360 = 24 * 684
+    tasks.append((q, np.concatenate([flanks[0], q, flanks[1]])))
+    q = own.integers(0, 4, SW_PACKED_ROWS + 1).astype(np.uint8)
+    tasks.append((q, homolog(q, 0.03, q.size + 200, own)))
+    q = own.integers(0, 4, 17000).astype(np.uint8)
+    tasks.append((q, homolog(q, 0.06, 16500, own)))
+    q = own.integers(0, 4, 16400).astype(np.uint8)
+    s = homolog(q, 0.04, 18000, own)
+    q[5000:5080] = 4
+    q[own.random(q.size) < 0.005] = ord("R")  # an IUPAC letter, as encode() leaves it
+    s[own.random(s.size) < 0.01] = 5
+    tasks.append((q, s))
+    tasks.append((np.full(16400, 4, np.uint8), own.integers(0, 4, 16400).astype(np.uint8)))
     return tasks
 
 
@@ -424,18 +462,30 @@ def check_sw_kernel(torch, sw) -> dict:
     t0 = phase(f"SW kernel vs plain: fuzz set of {len(tasks)} tasks (longest "
                f"fragment {max(q.size for q, _ in tasks)} rows, widest window "
                f"{max(s.size for _, s in tasks)} columns)")
+    narrow = [sw.uses_packed_lanes(q.size, s.size) for q, s in tasks]
+    if sum(narrow) < 4 or len(narrow) - sum(narrow) < 4:
+        raise AssertionError("the SW fuzz set must hold several tasks of each width")
     got = sw.batch_sw_best_cuda(tasks)
     torch.cuda.synchronize()
     plain = sw.batch_sw_best_reference(tasks)
     host = sw.batch_sw_best_host(tasks, workers=workers)
     if got != plain or got != host:
         bad = [i for i in range(len(tasks)) if not got[i] == plain[i] == host[i]]
-        msg = f"SW kernel disagrees on tasks {bad[:10]}: {[(got[i], plain[i], host[i]) for i in bad[:3]]}"
+        msg = (f"SW kernel disagrees on tasks {bad[:10]} (kernel, plain, native): "
+               f"{[(got[i], plain[i], host[i]) for i in bad[:3]]}")
         raise AssertionError(msg)
     if not any(r[0] == 0 for r in got) or not any(r[1] > 1024 for r in got):
         raise AssertionError("the SW fuzz set lost its no-alignment or long-fragment tasks")
+    wide_scores = [r[0] for r, packed_lanes in zip(got, narrow) if not packed_lanes]
+    if min(wide_scores) != 0 or sum(score > 20000 for score in wide_scores) < 3:
+        raise AssertionError("the SW fuzz set lost its tasks on the 32-bit path")
+    edge = [sw.uses_packed_lanes(SW_PACKED_ROWS + extra, 1 << 20) for extra in (0, 1)]
+    if edge != [True, False] or max(r[0] for r in got) != 2 * SW_PACKED_ROWS:
+        raise AssertionError("the SW fuzz set lost the task at the edge of the packed lanes")
     err = max_abs_err(got, plain)
-    print(f"   identical (score, best_i, best_j): kernel == plain == native on {len(tasks)} tasks")
+    print(f"   identical (score, best_i, best_j): kernel == plain == native on {len(tasks)} tasks, "
+          f"{sum(narrow)} in packed 16-bit lanes and {len(tasks) - sum(narrow)} in 32-bit words "
+          f"in the one launch")
     done("SW fuzz", t0)
 
     tasks = sw_main_tasks(rng)
@@ -476,7 +526,49 @@ def check_sw_kernel(torch, sw) -> dict:
     nbytes = sum(int(x.numel()) * x.element_size() for x in packed) + out.numel() * 4
     record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
               **bound("sw", cells, nbytes)}
+    # not a bound: the 32-bit kernel's instructions at the card's rate
+    record["ops_32bit_ms"] = cells * SW_OPS_32BIT / INT_OPS_PER_S * 1e3
+    print(f"   share of the bound: {record['bound_ms'] / kernel_ms:.3f}; for comparison with "
+          f"earlier records, {SW_OPS_32BIT} instructions a cell (the 32-bit kernel's count) "
+          f"would take {record['ops_32bit_ms']:.4f} ms, {record['ops_32bit_ms'] / kernel_ms:.3f} "
+          f"of the kernel's time")
     done("SW timing", t0)
+
+    # ANIb's launch shape: the same mix SW_BIG times over in one launch, so
+    # that every scheduler holds several warps and the card's rate shows;
+    # shuffled, so that a task meets other blocks, warps and neighbours
+    # than in the launch compared above
+    t0 = phase(f"SW kernel at ANIb's launch shape: {SW_BIG * len(tasks)} tasks, "
+               f"{SW_BIG * cells} cells in one launch")
+    order = np.random.default_rng(SEED + 5).permutation(SW_BIG * len(tasks)) % len(tasks)
+    big = [t.cuda() for t in sw.pack_tasks([tasks[t] for t in order])]
+    big_out = sw.sw_cuda(*big)  # warm
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        sw.sw_cuda(*big)
+    stop.record()
+    torch.cuda.synchronize()
+    big_ms = start.elapsed_time(stop) / 3
+    # every task must give the row that its copy among the 1,024 gave,
+    # which was compared with the plain version and the oracle above
+    if [tuple(r) for r in big_out.cpu().tolist()] != [got[t] for t in order]:
+        raise AssertionError("SW kernel disagrees with itself in the large batch")
+    big_bound = SW_BIG * cells * OPS_PER_CELL["sw"] / INT_OPS_PER_S * 1e3
+    big_32bit = SW_BIG * cells * SW_OPS_32BIT / INT_OPS_PER_S * 1e3
+    print(f"   identical tuples on all {SW_BIG * len(tasks)} tasks ({SW_BIG} shuffled copies "
+          f"of the rows compared above)")
+    print(f"   kernel ms per launch (CUDA events, mean of 3): {big_ms:.4f} "
+          f"({SW_BIG * cells / big_ms / 1e6:.2f} G cell updates/s); bound {big_bound:.4f} ms at "
+          f"{OPS_PER_CELL['sw']} instructions a cell, share {big_bound / big_ms:.3f}; "
+          f"{SW_OPS_32BIT} a cell would take {big_32bit:.4f} ms, {big_32bit / big_ms:.3f} of the "
+          f"kernel's time")
+    if big_bound > big_ms or record["bound_ms"] > kernel_ms:
+        raise AssertionError("the SW kernel beat its bound: the bound is wrong")
+    record["large_batch_tasks"] = SW_BIG * len(tasks)
+    record["large_batch_ms"] = big_ms
+    record["large_batch_bound_ms"] = big_bound
+    done("SW large batch", t0)
     return record
 
 

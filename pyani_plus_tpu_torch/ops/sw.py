@@ -9,7 +9,9 @@ integer. The cell is 1-based and the first maximum in row-major order
 code >= 4 never matches: N == N, IUPAC letters and the padding code 5.
 
 - ``sw_cuda`` launches ``csrc/sw.cu`` on packed tensors (one warp per
-  task, tasks of any length: no shape ladder, no window limit).
+  task, tasks of any length: no shape ladder, no window limit). Inside
+  the one launch a task whose scores fit 16 bits runs two columns a
+  register (``uses_packed_lanes``); any other runs in 32-bit words.
 - ``batch_sw_best_reference`` is the plain PyTorch version: row by row
   over (tasks, columns) tensors, the E state by ``torch.cummax``, on CPU
   tensors.
@@ -42,11 +44,34 @@ __all__ = [
     "pack_tasks",
     "reset_counts",
     "sw_cuda",
+    "uses_packed_lanes",
 ]
 
 PAD_CODE = 5  # the JAX kernels' padding code; never matches anything
 
 Result = tuple[int, int, int]
+
+# csrc/sw.cu's geometry: window columns a lane owns in one stripe, on the
+# packed 16-bit path (two a register) and on the 32-bit path.
+PACKED_COLS = 24
+WIDE_COLS = 8
+INT16_MAX = 32767
+
+
+def uses_packed_lanes(m: int, n: int) -> bool:
+    """Whether the kernel runs an (m, n) task in packed 16-bit lanes.
+
+    The kernel computes the same rule from the same numbers. The largest
+    value a packed word holds is a cell's score plus the E scan's column
+    offset within one lane: no local alignment scores above
+    ``REWARD * min(m, n)``, and the offset is at most
+    ``GAP_EXTEND * (PACKED_COLS - 1)``. The window's length alone never
+    matters: the scan across lanes and stripes runs in 32-bit words, and
+    what it hands a lane is clamped at 0, below which it cannot lift a
+    cell. With blastn's 2 and 2 the rule is ``min(m, n) <= 16360``.
+    """
+    return REWARD * min(m, n) + GAP_EXTEND * (PACKED_COLS - 1) <= INT16_MAX
+
 
 # Kernel launches and tasks sent through them, counted where the kernel
 # is launched and nowhere else (plain integers; reset_counts() zeroes).
@@ -67,7 +92,7 @@ def _kernel_library() -> ctypes.CDLL:
     if lib.sw_launch.argtypes is None:
         lib.sw_launch.restype = ctypes.c_int
         lib.sw_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 3
         )
         lib.sw_error_string.restype = ctypes.c_char_p
         lib.sw_error_string.argtypes = [ctypes.c_int]
@@ -94,15 +119,14 @@ def sw_cuda(
     out = torch.empty((nb, 3), dtype=torch.int32, device=device)
     if nb == 0:
         return out
-    # the stripe boundary (H, E carry) of every fragment row
+    # the stripe boundary (H, E carry) of every fragment row, 32-bit words
     scratch = torch.empty((q_all.numel(), 2), dtype=torch.int32, device=device)
     lib = _kernel_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.sw_launch(
             q_all.data_ptr(), s_all.data_ptr(), q_off.data_ptr(), s_off.data_ptr(),
-            m.data_ptr(), n.data_ptr(), nb, REWARD, PENALTY, GAP_OPEN, GAP_EXTEND,
-            scratch.data_ptr(), out.data_ptr(), stream,
+            m.data_ptr(), n.data_ptr(), nb, scratch.data_ptr(), out.data_ptr(), stream,
         )  # fmt: skip
     if rc != 0:
         msg = f"Smith-Waterman kernel launch failed: {lib.sw_error_string(rc).decode()}"

@@ -1,8 +1,9 @@
 """The port is a package of its own: no ``jax``, nothing of ``pyani_plus_tpu``.
 
-Two checks. A static one over every source file of the port and over
-``chip_smoke.py``: no import statement, and no module name handed to
-``importlib``, names ``jax`` or the JAX package. And a run: the port's
+Two checks. A static one over every source file of the port, over
+``chip_smoke.py`` and over the kernel-timing tools
+(``tools/*_variants.py``): no import statement, and no module name
+handed to ``importlib``, names ``jax`` or the JAX package. And a run: the port's
 command line, in a subprocess whose import system refuses both names,
 computes each ported method on tiny synthetic genomes on the CPU (with
 the batched plain-PyTorch paths forced) and exports the run.
@@ -24,9 +25,12 @@ from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "pyani_plus_tpu_torch"
+# the port's sources, its smoke run and the tools that time its kernels
 SOURCES = sorted(
-    str(p.relative_to(REPO)) for p in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]
-)
+    str(p.relative_to(REPO))
+    for p in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py",
+              *(REPO / "tools").glob("*_variants.py")]
+)  # fmt: skip
 FOREIGN = ("jax", "jaxlib", "pyani_plus_tpu")
 # the acceptance grep: an import statement at any indentation
 IMPORT_LINE = re.compile(r"^\s*(from|import)\s+(pyani_plus_tpu|jax|jaxlib)([. ]|$)", re.M)
@@ -40,7 +44,8 @@ def _foreign(name: str | None) -> bool:
 
 def test_sources_were_found() -> None:
     assert len(SOURCES) > 30
-    for expected in ("chip_smoke.py", "pyani_plus_tpu_torch/native/__init__.py",
+    for expected in ("chip_smoke.py", "tools/sw_variants.py", "tools/extend_variants.py",
+                     "pyani_plus_tpu_torch/native/__init__.py",
                      "pyani_plus_tpu_torch/db/__init__.py",
                      "pyani_plus_tpu_torch/report/classify.py"):  # fmt: skip
         assert expected in SOURCES
