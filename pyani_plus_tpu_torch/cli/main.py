@@ -1,7 +1,9 @@
 """The ``pyani-plus-tpu-torch`` command line application.
 
-The ported methods (``anim``, ``dnadiff``, ``anib``, ``sourmash``) and
-``resume`` run through the port's runner; the report commands
+The eight methods (``anim``, ``dnadiff``, ``anib``, ``sourmash``, which
+use the card, and ``fastani``, ``skani``, ``animinimap2``,
+``external-alignment``, which run on the host as they do in the JAX
+package) and ``resume`` run through the port's runner; the report commands
 (``list-runs``, ``delete-run``, ``export-run``, ``classify``,
 ``plot-run``, ``plot-run-comp``, ``export-comparisons``,
 ``import-comparisons``) read the port's own store and report modules.
@@ -109,6 +111,7 @@ def _run_method(  # noqa: PLR0913
     cache: Path | None,
     log: Path | None,
     debug: bool,
+    extra_files: dict[str, Path] | None = None,
     **params,
 ) -> None:
     logger = _logger(log, debug=debug)
@@ -122,6 +125,7 @@ def _run_method(  # noqa: PLR0913
         cmdline=_cmdline(),
         create_db=create_db,
         cache=cache,
+        extra_files=extra_files,
         **params,
     )
     click.echo(f"Run {run_id} complete")
@@ -243,6 +247,149 @@ def sourmash_cmd(  # noqa: PLR0913
     )
 
 
+@app.command(name="fastani")
+@common_run_options
+@click.option("--fragsize", default=3000, show_default=True, help="Fragment length")
+@click.option("-k", "--kmersize", default=16, show_default=True, help="k-mer size")
+@click.option(
+    "--minmatch", default=0.2, show_default=True, help="Minimum fraction of fragments"
+)
+def fastani_cmd(  # noqa: PLR0913
+    fasta: Path,
+    database: Path,
+    name: str | None,
+    create_db: bool,
+    cache: Path | None,
+    log: Path | None,
+    debug: bool,
+    fragsize: int,
+    kmersize: int,
+    minmatch: float,
+) -> None:
+    """Fragment minimizer-mapping ANI (fastANI-equivalent, on the host)."""
+    _run_method(
+        "fastANI",
+        fasta,
+        database,
+        name=name,
+        create_db=create_db,
+        cache=cache,
+        log=log,
+        debug=debug,
+        fragsize=fragsize,
+        kmersize=kmersize,
+        minmatch=minmatch,
+    )
+
+
+@app.command(name="animinimap2")
+@common_run_options
+@click.option(
+    "--mode",
+    type=click.Choice(["asm5", "asm10", "asm20"]),
+    default="asm20",
+    show_default=True,
+    help="Minimizer preset",
+)
+def animinimap2_cmd(  # noqa: PLR0913
+    fasta: Path,
+    database: Path,
+    name: str | None,
+    create_db: bool,
+    cache: Path | None,
+    log: Path | None,
+    debug: bool,
+    mode: str,
+) -> None:
+    """Minimizer-alignment ANI (minimap2-equivalent, on the host)."""
+    _run_method(
+        "ANIminimap2",
+        fasta,
+        database,
+        name=name,
+        create_db=create_db,
+        cache=cache,
+        log=log,
+        debug=debug,
+        mode=mode,
+    )
+
+
+@app.command(name="skani")
+@common_run_options
+@click.option(
+    "--mode",
+    type=click.Choice(["fast", "medium", "slow", "small-genomes"]),
+    default="fast",
+    show_default=True,
+    help="skani preset",
+)
+def skani_cmd(  # noqa: PLR0913
+    fasta: Path,
+    database: Path,
+    name: str | None,
+    create_db: bool,
+    cache: Path | None,
+    log: Path | None,
+    debug: bool,
+    mode: str,
+) -> None:
+    """Sparse chained k-mer ANI (skani-equivalent, on the host)."""
+    _run_method(
+        "skani",
+        fasta,
+        database,
+        name=name,
+        create_db=create_db,
+        cache=cache,
+        log=log,
+        debug=debug,
+        mode=mode,
+    )
+
+
+@app.command(name="external-alignment")
+@common_run_options
+@click.option(
+    "--alignment",
+    required=True,
+    type=click.Path(path_type=Path, dir_okay=False, exists=True),
+    help="FASTA MSA of the genomes",
+)
+@click.option(
+    "--label",
+    type=click.Choice(["md5", "filename", "stem"]),
+    default="stem",
+    show_default=True,
+    help="How the MSA names the genomes",
+)
+def external_alignment_cmd(  # noqa: PLR0913
+    fasta: Path,
+    database: Path,
+    name: str | None,
+    create_db: bool,
+    cache: Path | None,
+    log: Path | None,
+    debug: bool,
+    alignment: Path,
+    label: str,
+) -> None:
+    """ANI from a user-supplied whole-genome multiple sequence alignment."""
+    _run_method(
+        "external-alignment",
+        fasta,
+        database,
+        name=name,
+        create_db=create_db,
+        cache=cache,
+        log=log,
+        debug=debug,
+        extra_files={"alignment": alignment},
+        alignment=alignment,
+        label=label,
+    )
+
+
 @app.command(name="resume")
 @click.option(
     "-d",
@@ -263,7 +410,7 @@ def resume_cmd(
     log: Path | None,
     debug: bool,
 ) -> None:
-    """Resume a partial run of a ported method (missing comparisons only)."""
+    """Resume a partial run (recomputes only missing comparisons)."""
     logger = _logger(log, debug=debug)
     with Database(database, logger=logger) as db:
         run = _load_run_checked(logger, db, run_id)

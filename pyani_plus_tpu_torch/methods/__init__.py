@@ -1,4 +1,4 @@
-"""The port's method registry: the methods ported so far.
+"""The port's method registry: the JAX package's eight methods.
 
 A method module exposes ``NAME``, ``configuration(**params)`` (the
 configuration column values) and ``compute(ctx)`` (comparison dicts for
@@ -64,10 +64,14 @@ class ComputeContext:
 
 # Method name (as stored in configurations) -> module of this package.
 _MODULES = {
-    "ANIm": "anim",
-    "dnadiff": "dnadiff",
-    "ANIb": "anib",
     "sourmash": "sourmash",
+    "fastANI": "fastani",
+    "ANIm": "anim",
+    "ANIb": "anib",
+    "ANIminimap2": "animinimap2",
+    "dnadiff": "dnadiff",
+    "skani": "skani",
+    "external-alignment": "external_alignment",
 }
 
 
@@ -80,8 +84,8 @@ def get_method(name: str) -> Any:
         modname = _MODULES[name]
     except KeyError:
         msg = (
-            f"Method {name!r} is not ported to PyTorch yet; ported: "
-            f"{sorted(_MODULES)} (the JAX package runs the others)"
+            f"Method {name!r} is not ported to PyTorch; ported: "
+            f"{sorted(_MODULES)}"
         )
         raise ValueError(msg) from None
     return importlib.import_module(f"pyani_plus_tpu_torch.methods.{modname}")

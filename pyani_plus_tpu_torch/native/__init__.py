@@ -1,11 +1,14 @@
 """Native (C++) host-side kernels, loaded via ctypes with lazy build.
 
 The card owns the batched scoring math; these cover the host stages of
-the four ported methods: sketch hashing (``sketch.cpp``), suffix
-automaton seeding (``suffix.cpp``), clustering and chain DPs
-(``chain.cpp``), the banded affine DP (``band.cpp``), the local
-alignment score and stats DPs (``align.cpp``) and the seed join
-(``seedjoin.cpp``). Each library is built with g++ on first use through
+the methods: sketch hashing (``sketch.cpp``), suffix automaton seeding
+(``suffix.cpp``), clustering and chain DPs (``chain.cpp``), the banded
+affine DP (``band.cpp``), the local alignment score and stats DPs
+(``align.cpp``), the seed join (``seedjoin.cpp``), minimap2's sketch,
+chain and backtrack (``mm2.cpp``, ANIminimap2) and fastANI's winnowing
+and fragment mapping (``fastani.cpp``). The wrappers of the last two
+are copied from the JAX package's ``native/__init__.py`` unchanged; only
+their loaders differ. Each library is built with g++ on first use through
 ``ops/_build.py`` (source hash in the file name, written under a private
 name and renamed, one lock held across build and load), so concurrent
 threads and processes all get the finished library. Absence of a
@@ -187,8 +190,6 @@ def local_align_score_native(  # noqa: PLR0913
     )
 
 
-
-
 def _bind_seedjoin(lib) -> None:
     p64 = ctypes.POINTER(ctypes.c_int64)
     lib.seed_join_count_sorted.restype = ctypes.c_int64
@@ -285,8 +286,6 @@ def seed_join_diags_native(  # noqa: PLR0913
     if n < 0:  # pragma: no cover - count/fill mismatch cannot happen
         return None
     return out[:n], counts
-
-
 
 
 def _bind_suffix(lib) -> None:
@@ -471,8 +470,6 @@ def kasai_lcp_native(text: np.ndarray, sa: np.ndarray):
     return lcp
 
 
-
-
 def _bind_band(lib) -> None:
     lib.band_affine.restype = None
     lib.band_affine.argtypes = [
@@ -546,6 +543,411 @@ def suffix_array_native(text: np.ndarray):
     return sa
 
 
+def _bind_mm2(lib) -> None:
+    lib.mm2_sketch.restype = ctypes.c_int64
+    lib.mm2_sketch.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.mm2_chain_rmq2_f.restype = None
+    lib.mm2_chain_rmq2_f.argtypes = [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_float,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.mm2_chain_rmq2.restype = None
+    lib.mm2_chain_rmq2.argtypes = [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_float,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.mm2_backtrack.restype = ctypes.c_int64
+    lib.mm2_backtrack.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+
+
+def _load_mm2():
+    return _bound("mm2", _bind_mm2)
+
+
+def mm2_sketch_native(codes: np.ndarray, k: int, w: int):
+    """minimap2 mm_sketch -> (hashes, end_positions, strands), or None."""
+    lib = _load_mm2()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = codes.size
+    out_h = np.empty(n, dtype=np.uint64)
+    out_p = np.empty(n, dtype=np.int32)
+    out_s = np.empty(n, dtype=np.uint8)
+    count = lib.mm2_sketch(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        n,
+        k,
+        w,
+        out_h.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        out_p.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out_s.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    return out_h[:count], out_p[:count], out_s[:count]
+
+
+def mm2_chain_rmq2_native(  # noqa: PLR0913
+    ax: np.ndarray,
+    ay: np.ndarray,
+    q_span: int,
+    max_dist: int,
+    max_dist_inner: int,
+    bw: int,
+    chn_pen_gap: float,
+    max_skip: int = 25,
+    cap_rmq_size: int = 100000,
+    pri_mode: int = 0,
+    flags: int = 0,
+):
+    """mg_chain_rmq heuristic chain scores -> (f, p), or None."""
+    lib = _load_mm2()
+    if lib is None:
+        return None
+    ax = np.ascontiguousarray(ax, dtype=np.int64)
+    ay = np.ascontiguousarray(ay, dtype=np.int32)
+    n = ax.size
+    f = np.zeros(n, dtype=np.int32)
+    p = np.full(n, -1, dtype=np.int64)
+    lib.mm2_chain_rmq2_f(
+        ax.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ay.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n,
+        q_span,
+        max_dist,
+        max_dist_inner,
+        bw,
+        max_skip,
+        cap_rmq_size,
+        chn_pen_gap,
+        pri_mode,
+        flags,
+        f.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return f, p
+
+
+def mm2_backtrack_native(
+    f: np.ndarray,
+    p: np.ndarray,
+    max_drop: int,
+    min_sc: int,
+    min_cnt: int,
+):
+    """mg_chain_backtrack -> [(score, anchor_idx_ascending)], or None."""
+    lib = _load_mm2()
+    if lib is None:
+        return None
+    f = np.ascontiguousarray(f, dtype=np.int32)
+    p = np.ascontiguousarray(p, dtype=np.int64)
+    n = f.size
+    v = np.empty(n, dtype=np.int64)
+    off = np.empty(n + 1, dtype=np.int64)
+    sc = np.empty(max(n, 1), dtype=np.int32)
+    n_chains = lib.mm2_backtrack(
+        f.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n,
+        max_drop,
+        min_sc,
+        min_cnt,
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        sc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return [
+        (int(sc[c]), v[off[c] : off[c + 1]].copy())
+        for c in range(n_chains)
+    ]
+
+
+def _bind_fastani(lib) -> None:
+    lib.fastani_eval_region.restype = None
+    lib.fastani_eval_region.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.fastani_eval_region_all.restype = None
+    lib.fastani_eval_region_all.argtypes = (
+        lib.fastani_eval_region.argtypes[:10]
+        + [ctypes.POINTER(ctypes.c_int64)]
+    )
+    lib.fastani_winnow.restype = ctypes.c_int64
+    lib.fastani_winnow.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_uint32,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int8),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+    ]
+
+
+def _load_fastani():
+    return _bound("fastani", _bind_fastani)
+
+
+def fastani_eval_region_native(  # noqa: PLR0913
+    query_hashes_sorted: np.ndarray,
+    entry_hash: np.ndarray,
+    entry_first: np.ndarray,
+    entry_last: np.ndarray,
+    event_t: np.ndarray,
+    w_steps: int,
+    s: int,
+    region_b: int | None = None,
+):
+    """Fenwick-sweep region eval -> (shared, first_t, plateau_end), or None.
+
+    ``region_b`` is the last anchor of the region for the plateau-end
+    extension (defaults to the last event).
+    """
+    lib = _load_fastani()
+    if lib is None:
+        return None
+    qh = np.ascontiguousarray(query_hashes_sorted, dtype=np.uint64)
+    eh = np.ascontiguousarray(entry_hash, dtype=np.uint64)
+    ef = np.ascontiguousarray(entry_first, dtype=np.int64)
+    el = np.ascontiguousarray(entry_last, dtype=np.int64)
+    ev = np.ascontiguousarray(event_t, dtype=np.int64)
+    if region_b is None:
+        region_b = int(ev[-1]) if ev.size else 0
+    out = np.zeros(3, dtype=np.int64)
+    lib.fastani_eval_region(
+        qh.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        qh.size,
+        eh.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ef.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        el.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        eh.size,
+        ev.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ev.size,
+        w_steps,
+        s,
+        region_b,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+def fastani_eval_region_all_native(  # noqa: PLR0913
+    query_hashes_sorted: np.ndarray,
+    entry_hash: np.ndarray,
+    entry_first: np.ndarray,
+    entry_last: np.ndarray,
+    event_t: np.ndarray,
+    w_steps: int,
+    s: int,
+) -> np.ndarray | None:
+    """Shared count at EVERY event window (L2 diagnostics), or None."""
+    lib = _load_fastani()
+    if lib is None:
+        return None
+    qh = np.ascontiguousarray(query_hashes_sorted, dtype=np.uint64)
+    eh = np.ascontiguousarray(entry_hash, dtype=np.uint64)
+    ef = np.ascontiguousarray(entry_first, dtype=np.int64)
+    el = np.ascontiguousarray(entry_last, dtype=np.int64)
+    ev = np.ascontiguousarray(event_t, dtype=np.int64)
+    out = np.zeros(max(1, ev.size), dtype=np.int64)
+    lib.fastani_eval_region_all(
+        qh.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        qh.size,
+        eh.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ef.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        el.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        eh.size,
+        ev.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ev.size,
+        w_steps,
+        s,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return out[: ev.size]
+
+
+def fastani_winnow_native(seq_bytes, k: int, w: int, seed: int = 42):
+    """Winnowed minimizer pick runs -> 5 arrays, or None if unavailable.
+
+    Returns (hashes, positions, strands, first_steps, last_steps) with the
+    same contract as ops.minimizers.window_minimizers.
+    """
+    lib = _load_fastani()
+    if lib is None:
+        return None
+    seq = (
+        np.frombuffer(seq_bytes, dtype=np.uint8)
+        if isinstance(seq_bytes, (bytes, bytearray))
+        else np.ascontiguousarray(seq_bytes, dtype=np.uint8)
+    )
+    n = seq.size
+    n_win = n - k + 1
+    if n_win < max(w, 1):
+        return (
+            np.empty(0, np.uint64),
+            np.empty(0, np.int64),
+            np.empty(0, np.int8),
+            np.empty(0, np.int64),
+            np.empty(0, np.int64),
+        )
+    # Expected run count ~ 2*n/(w+1); retry with the exact count if short.
+    cap = max(1024, int(n_win * 2 / (w + 1)) + int(n_win * 0.1))
+    while True:
+        out_h = np.empty(cap, dtype=np.uint64)
+        out_p = np.empty(cap, dtype=np.int64)
+        out_s = np.empty(cap, dtype=np.int8)
+        out_f = np.empty(cap, dtype=np.int64)
+        out_l = np.empty(cap, dtype=np.int64)
+        count = lib.fastani_winnow(
+            seq.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            n,
+            k,
+            w,
+            seed,
+            out_h.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            out_p.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            out_s.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+            out_f.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            out_l.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            cap,
+        )
+        if count <= cap:
+            return (
+                out_h[:count].copy(),
+                out_p[:count].copy(),
+                out_s[:count].copy(),
+                out_f[:count].copy(),
+                out_l[:count].copy(),
+            )
+        cap = int(count)
+
+
+def _bind_map_fragment(lib):
+    if getattr(lib, "_map_fragment_bound", False):
+        return
+    lib.fastani_map_fragment.restype = None
+    lib.fastani_map_fragment.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib._map_fragment_bound = True
+
+
+def fastani_map_fragment_native(  # noqa: PLR0913
+    query_hashes_sorted: np.ndarray,
+    ref_hash: np.ndarray,
+    ref_first: np.ndarray,
+    ref_last: np.ndarray,
+    ref_seq: np.ndarray,
+    ref_hash_sorted: np.ndarray,
+    ref_sorted_entry: np.ndarray,
+    seq_lo: np.ndarray,
+    seq_hi: np.ndarray,
+    seq_ids: np.ndarray,
+    w_steps: int,
+    s: int,
+    frag_span: int,
+    min_anchor: int,
+):
+    """Full native fragment L2 mapping -> (shared, plateau_end, seq_id),
+    or None when the native library is unavailable."""
+    lib = _load_fastani()
+    if lib is None:
+        return None
+    _bind_map_fragment(lib)
+    out = np.zeros(3, dtype=np.int64)
+    lib.fastani_map_fragment(
+        query_hashes_sorted.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        query_hashes_sorted.size,
+        ref_hash.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ref_first.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ref_last.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ref_seq.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ref_hash_sorted.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ref_sorted_entry.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ref_hash.size,
+        seq_lo.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        seq_hi.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        seq_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        seq_ids.size,
+        w_steps,
+        s,
+        frag_span,
+        min_anchor,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return int(out[0]), int(out[1]), int(out[2])
 
 
 def _bind_chain(lib) -> None:

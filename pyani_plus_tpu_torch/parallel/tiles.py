@@ -1,7 +1,9 @@
 """Static shares of the pair grid for runs split over several hosts.
 
-Port of ``owned_pairs`` from ``pyani_plus_tpu/parallel/tiles.py`` (the
-mesh sharding there is JAX's and has no counterpart on one card).
+Port of ``owned_pairs`` from ``pyani_plus_tpu/parallel/tiles.py``. The
+mesh sharding there (the pair Gram and the DP batches split over several
+devices) is not ported yet: ROADMAP.md's item A11 will port it onto a
+list of torch devices.
 """
 
 from __future__ import annotations

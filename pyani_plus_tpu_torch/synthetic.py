@@ -24,24 +24,39 @@ def mutate(
     seq: np.ndarray, rate: float, rng: np.random.Generator
 ) -> np.ndarray:
     """Substitute a `rate` share of the letters; add indels at rate/20."""
+    return _mutate_tracked(seq, rate, rng)[0]
+
+
+def _mutate_tracked(
+    seq: np.ndarray, rate: float, rng: np.random.Generator
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``mutate``, with where each output letter came from: its position
+    in ``seq`` or, for an inserted letter (``inserted`` True), the
+    position it was inserted before."""
     out = seq.copy()
     codes = np.searchsorted(_BASES, out)  # A C G T -> 0..3
     mut = rng.random(out.size) < rate
     codes[mut] = (codes[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
     out[mut] = _BASES[codes[mut]]
     n_indels = int(out.size * rate / 20)
-    pieces = []
+    pieces, origin, inserted = [], [], []
     start = 0
     for pos in np.sort(rng.choice(out.size, n_indels, replace=False)):
         pieces.append(out[start:pos])
+        origin.append(np.arange(start, pos))  # empty where start > pos
+        inserted.append(np.zeros(pieces[-1].size, dtype=bool))
         size = int(rng.integers(1, 6))
         if rng.random() < 0.5:  # insertion
             pieces.append(_BASES[rng.integers(0, 4, size)])
+            origin.append(np.full(size, pos))
+            inserted.append(np.ones(size, dtype=bool))
             start = pos
         else:  # deletion
             start = min(out.size, pos + size)
     pieces.append(out[start:])
-    return np.concatenate(pieces)
+    origin.append(np.arange(start, out.size))
+    inserted.append(np.zeros(pieces[-1].size, dtype=bool))
+    return np.concatenate(pieces), np.concatenate(origin), np.concatenate(inserted)
 
 
 def salt(seq: np.ndarray, rng: np.random.Generator, n_runs: int = 4) -> None:
@@ -58,21 +73,33 @@ def related_genomes(
     length: int, rates: list[float], seed: int
 ) -> list[np.ndarray]:
     """One ASCII genome per substitution rate, from one shared ancestor."""
+    return [genome for genome, _origin, _inserted in _related_tracked(length, rates, seed)]
+
+
+def _related_tracked(length: int, rates: list[float], seed: int):
+    """``related_genomes`` with each genome's ``_mutate_tracked`` origins."""
     rng = np.random.default_rng(seed)
     ancestor = _BASES[rng.integers(0, 4, length)]
     genomes = []
     for rate in rates:
-        genome = mutate(ancestor, rate, rng) if rate else ancestor.copy()
+        if rate:
+            genome, origin, inserted = _mutate_tracked(ancestor, rate, rng)
+        else:
+            genome = ancestor.copy()
+            origin, inserted = np.arange(length), np.zeros(length, dtype=bool)
         salt(genome, rng)
-        genomes.append(genome)
+        genomes.append((genome, origin, inserted))
     return genomes
 
 
-def write_fasta(path: Path, name: str, seq: np.ndarray, width: int = 80) -> Path:
-    lines = [f">{name} synthetic".encode()]
+def _fasta_record(header: str, seq: np.ndarray, width: int = 80) -> bytes:
     raw = seq.tobytes()
-    lines.extend(raw[i : i + width] for i in range(0, len(raw), width))
-    path.write_bytes(b"\n".join(lines) + b"\n")
+    lines = [header.encode(), *(raw[i : i + width] for i in range(0, len(raw), width))]
+    return b"\n".join(lines) + b"\n"
+
+
+def write_fasta(path: Path, name: str, seq: np.ndarray, width: int = 80) -> Path:
+    path.write_bytes(_fasta_record(f">{name} synthetic", seq, width))
     return path
 
 
@@ -85,6 +112,45 @@ def write_genome_dir(
         write_fasta(directory / f"genome_{idx}.fna", f"genome_{idx}", seq)
         for idx, seq in enumerate(related_genomes(length, rates, seed))
     ]
+
+
+def write_alignment(
+    directory: Path, length: int, rates: list[float], seed: int,
+    name: str = "genomes.aln",
+) -> tuple[list[Path], Path]:
+    """The genomes of ``write_genome_dir`` and their true multiple
+    alignment, a FASTA file ``directory/name`` (the extension keeps it out
+    of the genome set) with one row a genome, named by its file's stem.
+
+    Columns follow the ancestor; a letter deleted from a genome is a gap
+    in its row, and each inserted letter has a column of its own that is
+    a gap in every other row. Columns that are gaps in every row are left
+    out."""
+    paths = write_genome_dir(directory, length, rates, seed)
+    tracked = _related_tracked(length, rates, seed)
+    # a letter's column key: its ancestor position, inserted letters
+    # first, then (for inserted letters only) genome and offset
+    keys = [
+        np.stack([origin, ~inserted, np.where(inserted, idx, -1),
+                  np.where(inserted, np.arange(genome.size), -1)], axis=1)
+        for idx, (genome, origin, inserted) in enumerate(tracked)
+    ]  # fmt: skip
+    stacked = np.concatenate(keys)
+    order = np.lexsort(stacked.T[::-1])
+    ordered = stacked[order]
+    new = np.ones(order.size, dtype=bool)
+    new[1:] = (ordered[1:] != ordered[:-1]).any(axis=1)
+    where = np.empty(order.size, dtype=np.int64)
+    where[order] = np.cumsum(new) - 1  # each letter's column
+    rows, offset = [], 0
+    for genome, _origin, _inserted in tracked:
+        row = np.full(int(new.sum()), ord("-"), dtype=np.uint8)
+        row[where[offset : offset + genome.size]] = genome
+        offset += genome.size
+        rows.append(row)
+    alignment = directory / name
+    alignment.write_bytes(b"".join(_fasta_record(f">{p.stem}", row) for p, row in zip(paths, rows)))
+    return paths, alignment
 
 
 def write_clade_dir(

@@ -115,14 +115,11 @@ def test_resume_across_packages(
 
 
 def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path) -> None:
-    """The report commands are the port's own copies, with the JAX
-    package's options; a run of a method the port lacks (fastANI) cannot
-    be resumed by it."""
-    assert set(torch_app.commands) == {
-        "anim", "dnadiff", "anib", "sourmash", "resume", "list-runs", "delete-run", "export-run",
-        "classify", "plot-run", "plot-run-comp", "export-comparisons",
-        "import-comparisons",
-    }  # fmt: skip
+    """The port has every command of the JAX package but ``launch`` (no
+    process group yet), the report and host-method commands are its own
+    copies with the JAX package's options, and a run of a method it does
+    not know (a made-up name) cannot be resumed by it."""
+    assert set(torch_app.commands) == set(jax_app.commands) - {"launch"}
     for name in sorted(set(torch_app.commands) - {"anim", "dnadiff", "anib", "sourmash", "resume"}):
         mine, theirs = torch_app.commands[name], jax_app.commands[name]
         assert mine is not theirs
@@ -130,9 +127,12 @@ def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path)
         assert [(o.name, o.opts, o.default) for o in mine.params] == [
             (o.name, o.opts, o.default) for o in theirs.params
         ], name
-    db = tmp_path / "fastani.db"
-    _run_cli(jax_app, ["fastani", str(genome_dir), "-d", str(db), "--create-db",
+    db = tmp_path / "skani.db"
+    _run_cli(jax_app, ["skani", str(genome_dir), "-d", str(db), "--create-db",
                        "--cache", str(tmp_path / "cache")])  # fmt: skip
+    with Database(db) as store:
+        store.execute_with_retries("UPDATE configurations SET method='no-such-method'")
+        assert store.load_run().configuration.method == "no-such-method"
     with pytest.raises(ValueError, match="not ported"):
         CliRunner().invoke(
             torch_app, ["resume", "-d", str(db), "--cache", str(tmp_path / "cache")],

@@ -2,20 +2,26 @@
 
 The port keeps a copy of every numpy and C++ host module it uses
 (``native/``, ``ops/chaining|dp|suffix|seeds|kmers|extend_host``,
-``genomes``, ``utils``, ``db``, ``report``) under the JAX package's
-module names. Each copy is driven here on inputs made with numpy from a
+``ops/minimizers|fastani_map|mm2``, the host-only methods ``fastani``,
+``skani``, ``animinimap2`` and ``external_alignment``, ``genomes``,
+``utils``, ``db``, ``report``) under the JAX package's module names. Each copy is driven here on inputs made with numpy from a
 seed and must give what the original gives: arrays equal element for
 element, tuples and dataclass fields equal, files byte for byte.
 
 Whether the native libraries exist is decided inside the ``libraries``
-fixture, never while this module is imported.
+fixture, never while this module is imported: with g++ on the host they
+must load, and the fixture fails if one does not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import fcntl
 import gzip
 import logging
+import shutil
+import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -23,15 +29,23 @@ import pytest
 
 import pyani_plus_tpu.db as jax_db
 import pyani_plus_tpu.genomes as jax_genomes
+import pyani_plus_tpu.methods as jax_methods
 import pyani_plus_tpu.methods.anib as jax_anib
 import pyani_plus_tpu.methods.anim as jax_anim
+import pyani_plus_tpu.methods.animinimap2 as jax_animinimap2
 import pyani_plus_tpu.methods.dnadiff as jax_dnadiff
+import pyani_plus_tpu.methods.external_alignment as jax_external
+import pyani_plus_tpu.methods.fastani as jax_fastani
+import pyani_plus_tpu.methods.skani as jax_skani
 import pyani_plus_tpu.native as jax_native
 import pyani_plus_tpu.ops.chaining as jax_chaining
 import pyani_plus_tpu.ops.dp as jax_dp
 import pyani_plus_tpu.ops.extend as jax_extend
+import pyani_plus_tpu.ops.fastani_map as jax_fastani_map
 import pyani_plus_tpu.ops.kmers as jax_kmers
 import pyani_plus_tpu.ops.minhash as jax_minhash
+import pyani_plus_tpu.ops.minimizers as jax_minimizers
+import pyani_plus_tpu.ops.mm2 as jax_mm2
 import pyani_plus_tpu.ops.seeds as jax_seeds
 import pyani_plus_tpu.ops.suffix as jax_suffix
 import pyani_plus_tpu.report.classify as jax_classify
@@ -39,15 +53,23 @@ import pyani_plus_tpu.report.export as jax_export
 import pyani_plus_tpu.utils as jax_utils
 import pyani_plus_tpu_torch.db as port_db
 import pyani_plus_tpu_torch.genomes as port_genomes
+import pyani_plus_tpu_torch.methods as port_methods
 import pyani_plus_tpu_torch.methods.anib as port_anib
 import pyani_plus_tpu_torch.methods.anim as port_anim
+import pyani_plus_tpu_torch.methods.animinimap2 as port_animinimap2
 import pyani_plus_tpu_torch.methods.dnadiff as port_dnadiff
+import pyani_plus_tpu_torch.methods.external_alignment as port_external
+import pyani_plus_tpu_torch.methods.fastani as port_fastani
+import pyani_plus_tpu_torch.methods.skani as port_skani
 import pyani_plus_tpu_torch.native as port_native
 import pyani_plus_tpu_torch.ops.chaining as port_chaining
 import pyani_plus_tpu_torch.ops.dp as port_dp
 import pyani_plus_tpu_torch.ops.extend_host as port_extend
+import pyani_plus_tpu_torch.ops.fastani_map as port_fastani_map
 import pyani_plus_tpu_torch.ops.kmers as port_kmers
 import pyani_plus_tpu_torch.ops.minhash as port_minhash
+import pyani_plus_tpu_torch.ops.minimizers as port_minimizers
+import pyani_plus_tpu_torch.ops.mm2 as port_mm2
 import pyani_plus_tpu_torch.ops.seeds as port_seeds
 import pyani_plus_tpu_torch.ops.suffix as port_suffix
 import pyani_plus_tpu_torch.report.classify as port_classify
@@ -61,11 +83,37 @@ BLAST = (2, -3, 5, 2)  # reward, penalty, gap open, gap extend
 NUCMER = (3, -7, -13, -7)  # match, mismatch, gap open, gap extend
 
 
+NATIVE_NAMES = ("sketch", "align", "seedjoin", "suffix", "band", "mm2", "fastani", "chain")
+# The JAX package's loaders write lib*.so in place and give up for the
+# whole process after one failed load (pyani_plus_tpu/native/__init__.py:37-46),
+# so under xdist a worker that meets a library another worker is still
+# writing would skip every test here: every library is built now, while
+# each worker collects, one worker at a time, and the fixture below loads
+# again whatever a worker gave up on.
+if shutil.which("g++"):
+    with (Path(tempfile.gettempdir()) / "pyani_plus_tpu_native_build.lock").open("a") as _lock:
+        fcntl.flock(_lock, fcntl.LOCK_EX)
+        for _name in NATIVE_NAMES:
+            _src = Path(jax_native.__file__).with_name(f"{_name}.cpp")
+            try:
+                jax_native._build(_src, _src.with_name(f"lib{_name}.so"))
+            except (subprocess.CalledProcessError, OSError):
+                pass  # the fixture reports the library that does not load
+
+
 @pytest.fixture(scope="module")
 def libraries() -> None:
-    """Both packages' native libraries, built here if need be."""
-    if not (jax_native.have_native() and port_native.have_native()):
+    """Both packages' eight native libraries, loaded; a failure to load
+    one is an error wherever g++ exists."""
+    if not shutil.which("g++"):
         pytest.skip("no C++ compiler: the native libraries cannot be built")
+    for name in NATIVE_NAMES:
+        prefix = "" if name == "sketch" else f"_{name}"
+        if getattr(jax_native, f"{prefix}_lib") is None:
+            setattr(jax_native, f"{prefix}_tried", False)
+        loader = getattr(jax_native, "_load" if name == "sketch" else f"_load_{name}")
+        assert loader() is not None, f"the JAX package's {name} library does not load"
+        assert _build.load_host_library(name) is not None, f"the port's {name} library does not load"
 
 
 def related(rng: np.random.Generator, length: int, rate: float, *, n_codes: int = 4):
@@ -93,6 +141,10 @@ def same(x, y) -> None:
         assert type(x) is type(y) and len(x) == len(y)
         for u, v in zip(x, y):
             same(u, v)
+    elif isinstance(x, dict):
+        assert type(x) is type(y) and list(x) == list(y)
+        for key in x:
+            same(x[key], y[key])
     elif dataclasses.is_dataclass(x):
         assert type(x).__name__ == type(y).__name__
         same(dataclasses.astuple(x), dataclasses.astuple(y))
@@ -176,6 +228,111 @@ def _sketch(native, rng):
     )
 
 
+def _region_inputs(rng):
+    """One region of fastANI's L2 sweep (the JAX package's fuzz shape)."""
+    qh = np.unique(rng.integers(0, 400, int(rng.integers(1, 100))).astype(np.uint64))
+    ne = int(rng.integers(1, 150))
+    eh = rng.integers(0, 400, ne).astype(np.uint64)
+    ef = np.sort(rng.integers(0, 300, ne))
+    el = ef + rng.integers(0, 40, ne)
+    w_steps = int(rng.integers(1, 80))
+    ev = np.unique(np.clip(np.concatenate([ef - w_steps + 1, el + 1, [0]]), 0, 400))
+    return qh, eh, ef, el, ev, w_steps, int(rng.integers(1, qh.size + 1))
+
+
+def _fastani_region(native, rng):
+    out = []
+    for _ in range(20):
+        args = _region_inputs(rng)
+        out.append(native.fastani_eval_region_native(*args))
+        out.append(native.fastani_eval_region_native(*args, int(args[4][-1]) + 7))
+    return out
+
+
+def _fastani_region_all(native, rng):
+    return [native.fastani_eval_region_all_native(*_region_inputs(rng)) for _ in range(20)]
+
+
+def _winnow_inputs(rng):
+    """Sequences with lower case and N, k and w as fastANI's fuzz draws
+    them; the last one is shorter than a window."""
+    alphabet = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
+    out = []
+    for _ in range(12):
+        seq = bytes(rng.choice(alphabet, size=int(rng.integers(5, 4000))))
+        out.append((seq, int(rng.integers(4, 20)), int(rng.integers(1, 30))))
+    out.append((b"ACGTACGTAC", 16, 24))
+    return out
+
+
+def _fastani_winnow(native, rng):
+    out = [native.fastani_winnow_native(seq, k, w) for seq, k, w in _winnow_inputs(rng)]
+    out.append(native.fastani_winnow_native(np.frombuffer(b"ACGTTGCA" * 50, np.uint8), 16, 24))
+    return out
+
+
+def _ref_and_fragments(rng, fastani_map):
+    """A two-sequence reference index (a mutated copy of the fragments'
+    source and an unrelated sequence) and the fragments' sorted hashes."""
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = rng.choice(bases, size=20_000)
+    mut = base.copy()
+    flips = rng.random(base.size) < 0.05
+    mut[flips] = rng.choice(bases, size=int(flips.sum()))
+    ref = fastani_map.RefIndex.build([bytes(mut), bytes(rng.choice(bases, size=15_000))])
+    fragments = [fastani_map.window_minimizers(bytes(base[start : start + 3000]), 16, 24)
+                 for start in range(0, 18_000, 2500)]  # fmt: skip
+    return ref, fragments, fastani_map.n_window_steps(3000, 16, 24)
+
+
+def _map_fragment_native(native, ref, qh, w_steps):
+    return native.fastani_map_fragment_native(
+        qh, ref.hashes, ref.first_steps, ref.last_steps, ref.seq_ids, ref.hashes_sorted,
+        ref.sorted_entry, ref.seq_lo_arr, ref.seq_hi_arr, ref.seq_ids_arr,
+        w_steps, int(qh.size), 3000, 23,
+    )  # fmt: skip
+
+
+def _fastani_map_fragment(native, rng):
+    fastani_map = port_fastani_map if native is port_native else jax_fastani_map
+    ref, fragments, w_steps = _ref_and_fragments(rng, fastani_map)
+    return [_map_fragment_native(native, ref, np.unique(m.hashes), w_steps) for m in fragments]
+
+
+def _anchors(rng, n: int = 600):
+    """mm2 anchors sorted by (x, y): a noisy diagonal, a second one and
+    scattered repeats."""
+    x = np.concatenate([np.sort(rng.integers(0, 200_000, n)),
+                        np.sort(rng.integers(0, 50_000, n // 4)), rng.integers(0, 200_000, n // 8)])
+    y = np.concatenate([x[:n] + rng.integers(-30, 30, n), x[n : n + n // 4] + 90_000,
+                        rng.integers(0, 200_000, n // 8)])  # fmt: skip
+    order = np.lexsort((y, x))
+    return x[order].astype(np.int64), np.clip(y[order], 0, None).astype(np.int32)
+
+
+def _mm2_sketch(native, rng):
+    ref, _ = related(rng, 30_000, 0.05, n_codes=5)
+    return [native.mm2_sketch_native(ref, k, w) for k, w in ((19, 10), (17, 5), (15, 10))] + [
+        native.mm2_sketch_native(ref[:12], 19, 10)
+    ]
+
+
+def _mm2_chain(native, rng):
+    x, y = _anchors(rng)
+    return [
+        native.mm2_chain_rmq2_native(x, y, 19, 10_000, 1000, 1000, 0.8 * 0.01 * 19,
+                                     max_skip=25, cap_rmq_size=100_000, pri_mode=0, flags=1),
+        native.mm2_chain_rmq2_native(x, y, 15, 100_000, 1000, 100_000, 0.12),
+    ]  # fmt: skip
+
+
+def _mm2_backtrack(native, rng):
+    x, y = _anchors(rng)
+    f, p = native.mm2_chain_rmq2_native(x, y, 19, 10_000, 1000, 1000, 0.152)
+    return [native.mm2_backtrack_native(f, p, drop, sc, cnt)
+            for drop, sc, cnt in ((1000, 40, 3), (100_000, 20, 2), (50, 100, 5))]  # fmt: skip
+
+
 NATIVE_CASES = {
     "suffix_array_and_lcp": _suffix_array,
     "suffix_automaton_streams": _suffix_automaton,
@@ -184,6 +341,13 @@ NATIVE_CASES = {
     "align_score_and_stats": _align,
     "seedjoin_sort_and_join": _seedjoin,
     "sketch_codes": _sketch,
+    "fastani_eval_region": _fastani_region,
+    "fastani_eval_region_all": _fastani_region_all,
+    "fastani_winnow": _fastani_winnow,
+    "fastani_map_fragment": _fastani_map_fragment,
+    "mm2_sketch": _mm2_sketch,
+    "mm2_chain_rmq2": _mm2_chain,
+    "mm2_backtrack": _mm2_backtrack,
 }
 
 
@@ -194,6 +358,59 @@ def test_native_wrapper_matches_jax_package(libraries, case: str) -> None:
         drive(port_native, np.random.default_rng(101)),
         drive(jax_native, np.random.default_rng(101)),
     )
+
+
+def _oracle_winnow(rng):
+    for seq, k, w in _winnow_inputs(rng):
+        mins = port_minimizers.window_minimizers_numpy(seq, k, w)
+        same(port_native.fastani_winnow_native(seq, k, w), dataclasses.astuple(mins))
+
+
+def _oracle_region(rng):
+    for _ in range(20):
+        args = _region_inputs(rng)
+        same(port_native.fastani_eval_region_native(*args),
+             port_fastani_map._evaluate_region_numpy(*args))  # fmt: skip
+
+
+def _oracle_region_all(rng):
+    """Each event's shared count is the dense oracle's on that event alone."""
+    for _ in range(10):
+        qh, eh, ef, el, ev, w_steps, s = _region_inputs(rng)
+        got = port_native.fastani_eval_region_all_native(qh, eh, ef, el, ev, w_steps, s)
+        expected = [port_fastani_map._evaluate_region_numpy(qh, eh, ef, el, ev[i : i + 1], w_steps, s)[0]
+                    for i in range(ev.size)]  # fmt: skip
+        assert got.tolist() == expected
+
+
+def _oracle_map_fragment(rng):
+    ref, fragments, w_steps = _ref_and_fragments(rng, port_fastani_map)
+    for qh in (np.unique(m.hashes) for m in fragments):
+        same(_map_fragment_native(port_native, ref, qh, w_steps),
+             port_fastani_map._search_mappings_numpy(qh, ref, w_steps, int(qh.size), 3000, 23))  # fmt: skip
+
+
+def _oracle_mm2_backtrack(rng):
+    x, y = _anchors(rng)
+    f, p = port_native.mm2_chain_rmq2_native(x, y, 19, 10_000, 1000, 1000, 0.152)
+    for args in ((1000, 40, 3), (100_000, 20, 2), (50, 100, 5)):
+        same(port_native.mm2_backtrack_native(f, p, *args), port_mm2._backtrack_py(f, p, *args))
+
+
+ORACLE_CASES = {
+    "fastani_winnow": _oracle_winnow,
+    "fastani_eval_region": _oracle_region,
+    "fastani_eval_region_all": _oracle_region_all,
+    "fastani_map_fragment": _oracle_map_fragment,
+    "mm2_backtrack": _oracle_mm2_backtrack,
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORACLE_CASES))
+def test_native_wrapper_matches_its_numpy_oracle(libraries, case: str) -> None:
+    """The port's copied native wrappers give what the numpy oracles of
+    its copied ops give (the path taken without a compiler)."""
+    ORACLE_CASES[case](np.random.default_rng(303))
 
 
 def test_native_libraries_build_by_rename_with_the_source_hash(
@@ -227,7 +444,15 @@ def test_no_compiler_means_no_native_library(monkeypatch, tmp_path, caplog) -> N
     assert port_native.local_align_score_native(one, one, *BLAST) is None
     assert port_native.suffix_array_native(np.zeros(4, np.int64)) is None
     assert port_native.seed_sort_rows_native(*(np.zeros(0, np.int64),) * 3) is False
+    assert port_native.fastani_winnow_native(b"ACGT" * 20, 16, 24) is None
+    assert port_native.mm2_backtrack_native(np.zeros(3, np.int32), np.zeros(3, np.int64), 1, 1, 1) is None
     assert not port_native.have_native()
+    # fastANI's ops take their numpy oracles; minimap2's sketch refuses
+    seq = b"ACGTTGCAAGGCTTAC" * 40
+    same(dataclasses.astuple(port_minimizers.window_minimizers(seq, 16, 24)),
+         dataclasses.astuple(jax_minimizers.window_minimizers_numpy(seq, 16, 24)))  # fmt: skip
+    with pytest.raises(RuntimeError, match="mm2 native kernel unavailable"):
+        port_mm2.sketch(np.zeros(100, np.uint8), 19, 10)
     # the numpy route of the extension oracle still answers
     a, b = related(np.random.default_rng(4), 200, 0.1)
     assert port_extend.extend_errors(a, b) == jax_extend.extend_errors(a, b)
@@ -382,14 +607,149 @@ def _anib_host_stages(mod, rng):
     )  # fmt: skip
 
 
+def _genome(mod, name: str, *codes: np.ndarray):
+    """A Genome of ``mod``'s package with one record per code array."""
+    genomes = mod["genomes"]
+    records = [genomes.SequenceRecord(f"{name}{i}".encode(), c) for i, c in enumerate(codes)]
+    return genomes.Genome(name * (32 // len(name)), Path(f"{name}.fna"), records)
+
+
+def _minimizers(mod, rng):
+    out = []
+    for seq, k, w in _winnow_inputs(rng):
+        out.append(mod["minimizers"].window_minimizers(seq, k, w))
+        out.append(mod["minimizers"].window_minimizers_numpy(seq, k, w))
+    return out
+
+
+def _canonical_hashes(mod, rng):
+    alphabet = np.frombuffer(b"ACGTNacgtRY", dtype=np.uint8)
+    seq = rng.choice(alphabet, size=5000)
+    return [mod["minimizers"].canonical_hashes(seq, 15), mod["minimizers"].canonical_hashes(bytes(seq[:700]), 16),
+            mod["minimizers"].canonical_hashes(b"ACGT", 15)]  # fmt: skip
+
+
+def _fastani_map_ops(mod, rng):
+    fastani_map = mod["fastani_map"]
+    ref, fragments, w_steps = _ref_and_fragments(rng, fastani_map)
+    mappings = [fastani_map.map_fragment(m, ref, fragment_id=i) for i, m in enumerate(fragments)]
+    return (
+        (ref.seq_ids, ref.hashes, ref.first_steps, ref.last_steps, ref.hashes_sorted,
+         ref.sorted_entry, ref.seq_lo_arr, ref.seq_hi_arr, ref.seq_ids_arr, ref.seq_lengths),
+        fragments,
+        mappings,
+        fastani_map.ref_bin_filter([m for m in mappings if m is not None], 3000),
+        [fastani_map.estimate_minimum_hits_relaxed(s, 16, 80.0) for s in (1, 50, 238, 2000)],
+        [fastani_map.identity_upper_bound(x, 238, 16) for x in (1, 2, 40, 238)],
+        [fastani_map.md2j(d, 16) for d in (0.0, 0.05, 0.2)],
+    )  # fmt: skip
+
+
+def _fastani_pairs(mod, rng):
+    """methods/fastani.compute_pair on genomes of two records, with the
+    fragment mapping of every fragment and the reference-bin filter."""
+    ref, qry = related(rng, 24_000, 0.04)
+    far, _ = related(rng, 24_000, 0.3)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fastani = mod["fastani"]
+    subject = _genome(mod, "s", ref[:15_000], ref[15_000:])
+    out = []
+    for query in (_genome(mod, "q", qry), _genome(mod, "f", far), subject):
+        index = fastani.RefIndex.build([bytes(letters[r.codes]) for r in subject.records])
+        out.append(fastani.compute_pair(query, index, subject.length, 3000, 16, 0.2))
+        out.append(fastani.compute_pair(query, index, subject.length, 2000, 14, 0.5))
+    out.append(fastani.fragment_genome(subject, 3000))
+    out.append(fastani.configuration(fragsize=2000, kmersize=14, minmatch=0.5))
+    return out
+
+
+def _mm2_ops(mod, rng):
+    mm2 = mod["mm2"]
+    ref, qry = related(rng, 40_000, 0.05)
+    other, _ = related(rng, 10_000, 0.05)
+    out = []
+    for preset in ("asm5", "asm20"):
+        k, w = mm2.PRESET_PARAMS[preset]
+        sketches = [mm2.sketch(ref, k, w), mm2.sketch(other, k, w)]
+        index = mm2.build_index(sketches)
+        mid_occ = mm2.mid_occ_threshold(index[0])
+        qh, qp, qs = mm2.sketch(qry, k, w)
+        anchors = mm2.collect_anchors(index, qh, qp, qs, qry.size, k, mid_occ)
+        chains = {key: (mm2.chain_anchors(x, y, k), mm2.chain_anchors(x, y, k, pass2=True))
+                  for key, (x, y) in anchors.items()}  # fmt: skip
+        records = mm2.map_query_multi([ref, other], qry, k, w, sketches, index, mid_occ)
+        out.append((sketches, index, mid_occ, anchors, chains, records))
+    return out
+
+
+def _skani_stages(mod, rng):
+    skani = mod["skani"]
+    ref, qry = related(rng, 40_000, 0.03)
+    samples = [skani._sampled(codes, c) for codes in (ref, qry) for c in (30, 125)]
+    return (
+        [skani._debias(raw) for raw in np.linspace(0.85, 1.0, 61)],
+        samples,
+        skani._blocks(samples[2], samples[0], qry.size),
+        skani._blocks(samples[3], samples[1], qry.size),
+        skani._union([(5, 9), (1, 6), (20, 22)]),
+        skani.configuration(mode="slow"),
+    )
+
+
+def _skani_pairs(mod, rng):
+    ref, qry = related(rng, 40_000, 0.03)
+    far, _ = related(rng, 40_000, 0.12)
+    subject = _genome(mod, "s", ref)
+    return [mod["skani"].compute_pair(_genome(mod, "q", q), subject, mode, sample_cache={})
+            for q in (qry, far, ref[:5000]) for mode in ("fast", "slow", "small-genomes")]  # fmt: skip
+
+
+def _animinimap2_pairs(mod, rng):
+    animinimap2 = mod["animinimap2"]
+    ref, qry = related(rng, 40_000, 0.04)
+    subject = _genome(mod, "s", ref[:25_000], ref[25_000:])
+    out = [animinimap2._interval_union_inclusive([(5, 9), (1, 6), (20, 22)])]
+    for preset in ("asm5", "asm10", "asm20"):
+        index = animinimap2.build_subject_index(subject, preset)
+        query = _genome(mod, "q", qry)
+        out.append(animinimap2.compute_pair(query, subject, preset, index, {}))
+        out.append(animinimap2.compute_pair(subject, query, preset))
+    return out
+
+
+def _external_alignment_load(mod, rng):
+    """The MSA's rows, mapped to genomes by md5, filename and stem."""
+    rows = [bytes(rng.choice(np.frombuffer(b"ACGT-", dtype=np.uint8), 300)) for _ in range(3)]
+    genomes = {name * 16: _genome(mod, name, np.zeros(4, np.uint8)) for name in ("ab", "cd", "ef")}
+    ctx = mod["methods"].ComputeContext(
+        logger=logging.getLogger(__name__), genomes=genomes, query_hashes=[],
+        subject_hashes=[], pending=set(), config={},
+    )  # fmt: skip
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, names in (("md5", list(genomes)), ("filename", ["ab.fna", "cd.fna", "ef.fna"]),
+                             ("stem", ["ab", "cd", "ef"])):  # fmt: skip
+            path = Path(tmp) / f"{label}.aln"
+            text = b"".join(b">%s row\n%s\n%s\n" % (n.encode(), r[:150], r[150:]) for n, r in zip(names, rows))
+            path.write_bytes(text)
+            out.append(mod["external"]._load_alignment(ctx, label, path))
+        out.append(mod["external"].configuration(alignment=path, label="stem"))
+    return out
+
+
 MODULES = {
     "jax": {"chaining": jax_chaining, "dp": jax_dp, "suffix": jax_suffix, "seeds": jax_seeds,
             "extend": jax_extend, "kmers": jax_kmers, "minhash": jax_minhash,
-            "genomes": jax_genomes, "anim": jax_anim, "dnadiff": jax_dnadiff, "anib": jax_anib},
+            "genomes": jax_genomes, "anim": jax_anim, "dnadiff": jax_dnadiff, "anib": jax_anib,
+            "minimizers": jax_minimizers, "fastani_map": jax_fastani_map, "fastani": jax_fastani,
+            "mm2": jax_mm2, "skani": jax_skani, "animinimap2": jax_animinimap2,
+            "external": jax_external, "methods": jax_methods},
     "port": {"chaining": port_chaining, "dp": port_dp, "suffix": port_suffix, "seeds": port_seeds,
              "extend": port_extend, "kmers": port_kmers, "minhash": port_minhash,
              "genomes": port_genomes, "anim": port_anim, "dnadiff": port_dnadiff,
-             "anib": port_anib},
+             "anib": port_anib, "minimizers": port_minimizers, "fastani_map": port_fastani_map,
+             "fastani": port_fastani, "mm2": port_mm2, "skani": port_skani,
+             "animinimap2": port_animinimap2, "external": port_external, "methods": port_methods},
 }  # fmt: skip
 OPS_CASES = {
     "chaining_cluster_matches": _clusters,
@@ -403,6 +763,15 @@ OPS_CASES = {
     "anim_host_stages": _anim_host_stages,
     "dnadiff_qdiff_features": _dnadiff_features,
     "anib_host_stages": _anib_host_stages,
+    "minimizers_window_and_oracle": _minimizers,
+    "minimizers_canonical_hashes": _canonical_hashes,
+    "fastani_map_index_and_fragments": _fastani_map_ops,
+    "fastani_compute_pair": _fastani_pairs,
+    "mm2_sketch_chain_backtrack": _mm2_ops,
+    "skani_debias_and_blocks": _skani_stages,
+    "skani_compute_pair": _skani_pairs,
+    "animinimap2_compute_pair": _animinimap2_pairs,
+    "external_alignment_load": _external_alignment_load,
 }
 
 
