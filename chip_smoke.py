@@ -48,7 +48,17 @@ of which raises on failure (so the exit code is not 0):
    runner over the 2 Mb genomes (9 rows, identity falling with the
    substitution rate where the method reports one), again on the
    runner's static split with rows equal, and no kernel launched;
-9. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+9. several processes and several devices, on the one card: the Gram at
+   N = 1,000 split over a 2 x 2 mesh that names the card four times,
+   counts equal to the unsplit Gram; the SW kernel's main shape split over
+   the card named twice, tuples equal to one launch; ANIb through the
+   runner with the pair-grid mesh replaced by the card named twice, rows
+   equal to phase 6's in more launches; ANIm under ``launch -n 2`` with
+   private databases, host 0's rows equal to phase 5's, host 1 holding
+   its share, both workers' logs showing the card, neither worker
+   importing jax or the JAX package. On one card the times show what the
+   split costs, not how it scales;
+10. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -598,11 +608,11 @@ HOST_SHARE = {"PYANI_TPU_PROCESS_COUNT": "2", "PYANI_TPU_PROCESS_INDEX": "1",
 
 
 def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
-               tag: str, *, host_env: dict[str, str] | None) -> tuple[list[tuple], int]:
+               tag: str, *, host_env: dict[str, str] | None) -> tuple[list[tuple], int, float]:
     """One run through the port's runner with `kernel`'s launch counts
     zeroed just before it; `host_env` sends the work to the native host
     kernels instead, for a share of the pairs. Returns (rows, kernel
-    launches)."""
+    launches, wall seconds)."""
     from pyani_plus_tpu_torch.utils import devmeter
 
     db = work / f"{tag}.db"
@@ -617,11 +627,12 @@ def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
         for key in host_env:
             os.environ.pop(key, None)
     launches, tasks = kernel.LAUNCHES, kernel.TASKS
+    seconds = time.monotonic() - t0
     busy = devmeter.busy_fraction(window)
     done(tag, t0)
     print(f"   kernel launches {launches}, tasks through the kernel {tasks}")
     print(f"   device busy share (devmeter, submit to sync of each launch): {busy:.4f}")
-    return comparison_rows(db), launches
+    return comparison_rows(db), launches, seconds
 
 
 def check_identity_order(method: str, rows: list[tuple]) -> None:
@@ -635,17 +646,19 @@ def check_identity_order(method: str, rows: list[tuple]) -> None:
         raise AssertionError(f"{method} identities are out of order")
 
 
-def check_anim_path(ext, runner, logger, work: Path, paths: list[Path]) -> int:
-    """Phase 5: ANIm all-vs-all and a dnadiff pair, kernel vs host rows."""
+def check_anim_path(ext, runner, logger, work: Path,
+                    paths: list[Path]) -> tuple[int, list[tuple], float]:
+    """Phase 5: ANIm all-vs-all and a dnadiff pair, kernel vs host rows.
+    Returns ANIm's kernel launches, rows and wall seconds."""
     # above every batch: all extensions on the native host kernel
     host_env = {"PYANI_TPU_EXTEND_BATCH_MIN": str(1 << 40)}
     genomes = paths[0].parent
-    rows, launches = run_method(ext, runner, logger, work, genomes, "ANIm",
-                                "anim_kernel", host_env=None)
+    rows, launches, seconds = run_method(ext, runner, logger, work, genomes, "ANIm",
+                                         "anim_kernel", host_env=None)
     if launches == 0:
         raise AssertionError("the ANIm run never launched the kernel")
-    host_rows, host_launches = run_method(ext, runner, logger, work, genomes,
-                                          "ANIm", "anim_host", host_env=host_env)
+    host_rows, host_launches, _ = run_method(ext, runner, logger, work, genomes,
+                                             "ANIm", "anim_host", host_env=host_env)
     check_rows("ANIm", rows, host_rows, len(RATES) ** 2, 4)
     if host_launches:
         raise AssertionError("the host run launched the kernel")
@@ -655,31 +668,33 @@ def check_anim_path(ext, runner, logger, work: Path, paths: list[Path]) -> int:
     pair.mkdir()
     for path in paths[:2]:
         shutil.copy(path, pair / path.name)
-    rows2, launches2 = run_method(ext, runner, logger, work, pair, "dnadiff",
-                                  "dnadiff_kernel", host_env=None)
-    host2, _ = run_method(ext, runner, logger, work, pair, "dnadiff",
-                          "dnadiff_host", host_env=host_env)
+    rows2, launches2, _ = run_method(ext, runner, logger, work, pair, "dnadiff",
+                                     "dnadiff_kernel", host_env=None)
+    host2, _, _ = run_method(ext, runner, logger, work, pair, "dnadiff",
+                             "dnadiff_host", host_env=host_env)
     check_rows("dnadiff", rows2, host2, 4, 2)
     if launches2 == 0:
         raise AssertionError("the dnadiff run never launched the kernel")
-    return launches
+    return launches, rows, seconds
 
 
-def check_anib_path(sw, runner, logger, work: Path, paths: list[Path]) -> int:
-    """Phase 6: ANIb all-vs-all, kernel scoring vs the native host scorer."""
+def check_anib_path(sw, runner, logger, work: Path,
+                    paths: list[Path]) -> tuple[int, list[tuple]]:
+    """Phase 6: ANIb all-vs-all, kernel scoring vs the native host scorer.
+    Returns its kernel launches and rows."""
     genomes = paths[0].parent
-    rows, launches = run_method(sw, runner, logger, work, genomes, "ANIb",
-                                "anib_kernel", host_env=None)
+    rows, launches, _ = run_method(sw, runner, logger, work, genomes, "ANIb",
+                                   "anib_kernel", host_env=None)
     if launches == 0:
         raise AssertionError("the ANIb run never launched the kernel")
-    host_rows, host_launches = run_method(sw, runner, logger, work, genomes, "ANIb",
-                                          "anib_host",
-                                          host_env={"PYANI_TPU_ANIB_DEVICE": "0"})
+    host_rows, host_launches, _ = run_method(sw, runner, logger, work, genomes, "ANIb",
+                                             "anib_host",
+                                             host_env={"PYANI_TPU_ANIB_DEVICE": "0"})
     check_rows("ANIb", rows, host_rows, len(RATES) ** 2, 4)
     if host_launches:
         raise AssertionError("the ANIb host run launched the kernel")
     check_identity_order("ANIb", rows)
-    return launches
+    return launches, rows
 
 
 def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int,
@@ -752,8 +767,9 @@ def check_gram_fuzz(torch, minhash) -> None:
     done("Gram fuzz", t0)
 
 
-def check_gram_scale(torch, minhash) -> None:
-    """Phase 7b: the Gram at N = 1,000 on the card against scipy."""
+def check_gram_scale(torch, minhash) -> tuple[list, np.ndarray]:
+    """Phase 7b: the Gram at N = 1,000 on the card against scipy. Returns
+    the sketches and their counts."""
     from pyani_plus_tpu_torch.synthetic import clade_sketches
 
     t1 = time.monotonic()
@@ -781,6 +797,16 @@ def check_gram_scale(torch, minhash) -> None:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     gram_ms = float(np.median(times))
+    counts_dev = torch.zeros((n, n), dtype=torch.float64, device="cuda")
+    copy_times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        counts_dev.to(torch.int64).cpu().numpy()
+        stop.record()
+        torch.cuda.synchronize()
+        copy_times.append(start.elapsed_time(stop))
     t1 = time.monotonic()
     host = minhash.intersection_matrix_host(sketches)
     host_s = time.monotonic() - t1
@@ -789,11 +815,15 @@ def check_gram_scale(torch, minhash) -> None:
     blocks = pts.shape[0]
     flops = 2.0 * n * n * 4096 * blocks
     print(f"   union blocks of 4096: {blocks}, incidence per block up to {pts.shape[1]}")
-    print(f"   device Gram ms (CUDA events, median of 5): {gram_ms:.3f} "
+    print(f"   device Gram ms (CUDA events, median of 5, the counts' copy to the host "
+          f"included): {gram_ms:.3f} "
           f"(all {[round(t, 3) for t in times]}; {flops / gram_ms / 1e9:.2f} TFLOP/s fp32)")
+    print(f"   of which the counts' conversion to int64 and copy to the host ms (CUDA events, "
+          f"median of 5): {float(np.median(copy_times)):.3f}")
     print(f"   union and ids on the host s: {prep_s:.3f}; whole call s (host clock): {call_s:.3f}")
     print(f"   scipy host Gram s (host clock, one run): {host_s:.3f}; counts equal")
     done("Gram at scale", t0)
+    return sketches, got
 
 
 def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
@@ -940,6 +970,152 @@ def check_host_methods(kernels, _build, runner, logger, work: Path, alignment: P
         print(f"   {method}: {len(rows['all'])} rows; the share's 4 rows equal (ints exact, floats ==)")
 
 
+# The launch workers' interpreters refuse jax and the JAX package, and
+# each writes down at exit which of them it holds, how many times it
+# launched the extension kernel and which card was current.
+WORKER_SITE_HOOK = """
+import atexit, json, os, sys
+FOREIGN = ("jax", "jaxlib", "pyani_plus_tpu")
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FOREIGN:
+            raise ImportError("refused in the smoke's launch workers: " + name)
+sys.meta_path.insert(0, _Refuse())
+@atexit.register
+def _report():
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    extend = sys.modules.get("pyani_plus_tpu_torch.ops.extend")
+    backend = sys.modules.get("pyani_plus_tpu_torch.backend")
+    report = {"foreign": loaded, "extend_launches": extend.LAUNCHES if extend else None,
+              "device": str(backend.kernel_device()) if backend else None}
+    with open(os.path.join(os.environ["SMOKE_WORKER_REPORTS"], str(os.getpid())), "w") as out:
+        out.write(json.dumps(report))
+"""
+
+
+def check_split_paths(torch, minhash, sw, runner, logger, work: Path, genomes: Path,
+                      gram_scale: tuple, anim: tuple, anib: tuple, smi: str) -> None:
+    """Phase 9: several processes and several devices, on the one card.
+
+    (a) the Gram at N = 1,000 split over a 2 x 2 mesh that names the card
+    four times; (b) the SW kernel's main shape split over the card named
+    twice; (c) ANIb through the runner with the pair-grid mesh replaced by
+    the card named twice; (d) ANIm under `launch -n 2` with private
+    databases. On one card these timings show what the split costs, not
+    how it scales: every part runs on the same card, in turn.
+    """
+    from pyani_plus_tpu_torch.parallel import distributed, tiles
+
+    card = torch.device("cuda", 0)
+    sketches, counts = gram_scale
+    n = len(sketches)
+    t0 = phase(f"split Gram: N = {n} over a 2 x 2 mesh of the one card")
+    mesh = tiles.make_mesh(devices=[card] * 4)
+    if mesh.shape != (2, 2):
+        raise AssertionError(f"mesh of 4 entries is {mesh.shape}")
+    pts = minhash.incidence(sketches, 4096)
+
+    def unsplit():
+        return minhash.gram(torch.from_numpy(pts).to(card), n, 4096)
+
+    unsplit()  # warm
+    unsplit_ms = median_ms(unsplit, 3)
+    split = minhash.gram(pts, n, 4096, mesh)
+    split_ms = median_ms(lambda: minhash.gram(pts, n, 4096, mesh), 3)
+    if not np.array_equal(split, counts) or not np.array_equal(unsplit(), counts):
+        raise AssertionError("the split Gram differs from the unsplit Gram")
+    print(f"   counts equal (split == unsplit == scipy); host clock to the counts on the host, "
+          f"median of 3: unsplit {unsplit_ms:.3f} ms, split 2 x 2 {split_ms:.3f} ms ({smi})")
+    done("split Gram", t0)
+
+    tasks = sw_main_tasks(np.random.default_rng(SEED + 6))
+    t0 = phase(f"split SW: {len(tasks)} main-shape tasks over the card named twice")
+    one = sw.batch_sw_best_cuda(tasks, device=card)
+    before = sw.LAUNCHES
+    halves = sw.batch_sw_best(tasks, [card, card])
+    if sw.LAUNCHES != before + 2:
+        raise AssertionError(f"the split SW made {sw.LAUNCHES - before} launches, not 2")
+    if halves != one:
+        raise AssertionError("the split SW differs from one launch")
+    one_ms = median_ms(lambda: sw.batch_sw_best_cuda(tasks, device=card), 5)
+    halves_ms = median_ms(lambda: sw.batch_sw_best(tasks, [card, card]), 5)
+    print(f"   identical tuples on all {len(tasks)} tasks; wrapper ms incl. packing and copies "
+          f"(host clock, median of 5): one launch {one_ms:.3f}, two slices {halves_ms:.3f} ({smi})")
+    done("split SW", t0)
+
+    anib_launches, anib_rows = anib
+    mesh = tiles.make_mesh(devices=[card, card])
+    real = tiles.default_pair_mesh
+    tiles.default_pair_mesh = lambda: mesh
+    try:
+        rows, launches, seconds = run_method(sw, runner, logger, work, genomes, "ANIb",
+                                             "anib_mesh", host_env=None)
+    finally:
+        tiles.default_pair_mesh = real
+    if rows != anib_rows:
+        raise AssertionError("ANIb through the mesh differs from phase 6's rows")
+    if not launches > anib_launches:
+        raise AssertionError(f"ANIb through the mesh made {launches} launches, phase 6 "
+                             f"{anib_launches}")
+    print(f"   ANIb through a mesh of the card named twice: {len(rows)} rows equal to phase 6's; "
+          f"{launches} launches against {anib_launches}; wall s {seconds:.3f} ({smi})")
+
+    anim_launches, anim_rows, anim_seconds = anim
+    hook = work / "worker_hook"
+    reports = work / "worker_reports"
+    hook.mkdir()
+    reports.mkdir()
+    (hook / "sitecustomize.py").write_text(WORKER_SITE_HOOK)
+    env = {"PYTHONPATH": os.pathsep.join([str(hook), str(Path(__file__).resolve().parent),
+                                          *filter(None, [os.environ.get("PYTHONPATH")])]),
+           "SMOKE_WORKER_REPORTS": str(reports)}  # fmt: skip
+    saved = {key: os.environ.get(key) for key in env}
+    t0 = phase("ANIm under launch -n 2: private databases, workers on the one card")
+    os.environ.update(env)
+    try:
+        code = distributed.launch_local(
+            2, ["anim", str(genomes), "-d", str(work / "run_{rank}.db"), "--create-db",
+                "--log", str(work / "run_{rank}.log")],
+            timeout=600, quiet=True,
+        )  # fmt: skip
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    seconds = time.monotonic() - t0
+    if code != 0:
+        raise AssertionError(f"launch -n 2 anim exited {code}")
+    host0 = comparison_rows(work / "run_0.db")
+    host1 = comparison_rows(work / "run_1.db")
+    if host0 != anim_rows:
+        raise AssertionError("host 0's rows differ from phase 5's")
+    if not 0 < len(host1) < len(anim_rows) or not set(host1) <= set(anim_rows):
+        raise AssertionError(f"host 1's store holds {len(host1)} rows, not its share")
+    for rank in range(2):
+        log = (work / f"run_{rank}.log").read_text()
+        if "cuda available: True" not in log or "capability: (9, 0)" not in log:
+            raise AssertionError(f"worker {rank}'s log shows no probe of the card")
+    workers = [json.loads(path.read_text()) for path in sorted(reports.iterdir())]
+    if len(workers) != 2:
+        raise AssertionError(f"{len(workers)} launch workers reported, not 2")
+    for worker in workers:
+        if worker["foreign"]:
+            raise AssertionError(f"a launch worker imported {worker['foreign']}")
+        if worker["device"] != "cuda:0" or not worker["extend_launches"]:
+            raise AssertionError(f"a launch worker ran B1 {worker['extend_launches']} times "
+                                 f"on {worker['device']}")
+    print(f"   host 0: {len(host0)} rows equal to phase 5's; host 1: its share of {len(host1)} rows; "
+          "both logs show the card probed at capability (9, 0); neither worker imported jax "
+          "or pyani_plus_tpu")
+    print("   extension kernel launches per worker, counted in the worker: "
+          + ", ".join(f"{w['extend_launches']} on {w['device']}" for w in workers))
+    print(f"   ANIm wall s: one process (phase 5) {anim_seconds:.3f}, launch -n 2 {seconds:.3f} "
+          f"({smi})")
+    done("launch", t0)
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -990,14 +1166,15 @@ def main() -> int:
         paths, alignment = write_alignment(work / "genomes", GENOME_LENGTH, RATES, SEED)
         print(f"   alignment {alignment.name}: {alignment.stat().st_size} bytes")
         done("genomes", t0)
-        launches = {
-            "extend": check_anim_path(ext, runner, logger, work, paths),
-            "sw": check_anib_path(sw, runner, logger, work, paths),
-        }
+        anim = check_anim_path(ext, runner, logger, work, paths)
+        anib = check_anib_path(sw, runner, logger, work, paths)
+        launches = {"extend": anim[0], "sw": anib[0]}
         check_gram_fuzz(torch, minhash)
-        check_gram_scale(torch, minhash)
+        gram_scale = check_gram_scale(torch, minhash)
         check_sourmash_path(minhash, runner, logger, work)
         check_host_methods((ext, sw), _build, runner, logger, work, alignment)
+        check_split_paths(torch, minhash, sw, runner, logger, work, paths[0].parent,
+                          gram_scale, anim, anib, report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")

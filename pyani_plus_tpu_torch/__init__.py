@@ -16,8 +16,12 @@ Layout:
 - ``native/``     -- the C++ host kernels (built with g++ at first use)
 - ``ops/``        -- kernel builds, wrappers, their plain PyTorch versions
                      and the numpy host ops
-- ``methods/``    -- the ported methods (ANIm, dnadiff, ANIb, sourmash)
-- ``parallel/``   -- the run driver
+- ``methods/``    -- the eight methods (ANIm, dnadiff, ANIb and sourmash
+                     with the card; fastANI, skani, ANIminimap2 and
+                     external-alignment on the host)
+- ``parallel/``   -- the run driver, the process group (``launch``) and
+                     the pair-grid mesh
+- ``analysis/``   -- the skani debias simulation (numpy, off the run path)
 - ``genomes/``, ``utils/``, ``db/``, ``report/`` -- ingest, store, reports
 - ``cli/``        -- the ``pyani-plus-tpu-torch`` command line
 """

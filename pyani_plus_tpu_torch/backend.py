@@ -110,5 +110,7 @@ def probe() -> DeviceReport:
 
 
 def kernel_device() -> torch.device:
-    """Where the batched kernels run: the card when CUDA is present."""
-    return torch.device("cuda") if probe().cuda else torch.device("cpu")
+    """Where the batched kernels run: the current card when CUDA is
+    present, the CPU otherwise. A worker of a process group has made its
+    own card current (``parallel/distributed.maybe_initialize``)."""
+    return torch.device("cuda", torch.cuda.current_device()) if probe().cuda else torch.device("cpu")

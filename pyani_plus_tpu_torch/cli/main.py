@@ -9,11 +9,14 @@ package) and ``resume`` run through the port's runner; the report commands
 ``import-comparisons``) read the port's own store and report modules.
 Flags and output match ``pyani-plus-tpu``, so a run of either package
 can be listed, exported, classified, plotted or resumed by the other.
+``launch -n N -- <command>`` runs any of them as a ``torch.distributed``
+process group of N workers on this node.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -99,6 +102,14 @@ def common_run_options(f):
 @click.version_option(version=__version__)
 def app() -> None:
     """pyANI-plus-TPU on PyTorch/CUDA: whole-genome ANI with H100 kernels."""
+    # Join the process group as early as possible when launched as one; a
+    # group that cannot form fails the worker here.
+    if os.environ.get("PYANI_TPU_COORDINATOR") or os.environ.get(
+        "PYANI_TPU_AUTO_DISTRIBUTED"
+    ):
+        from pyani_plus_tpu_torch.parallel.distributed import maybe_initialize
+
+        maybe_initialize()
 
 
 def _run_method(  # noqa: PLR0913
@@ -129,6 +140,41 @@ def _run_method(  # noqa: PLR0913
         **params,
     )
     click.echo(f"Run {run_id} complete")
+
+
+@app.command(
+    context_settings={"ignore_unknown_options": True},
+    name="launch",
+)
+@click.option(
+    "-n",
+    "--processes",
+    default=2,
+    show_default=True,
+    help="Number of worker processes in the torch.distributed group",
+)
+@click.argument("command", nargs=-1, type=click.UNPROCESSED)
+def launch(processes: int, command: tuple[str, ...]) -> None:
+    """Run any method command as a multi-process torch.distributed group.
+
+    Spawns N copies of this CLI as one process group (gloo, coordinator on
+    localhost): each worker owns a static share of the pending pairs and
+    runs its kernels on its own card (cards are shared when there are
+    more workers than cards); results merge through a collective
+    all-gather, host 0 persisting the store -- the analogue of the
+    reference's Snakemake local/SLURM executors. Use "{rank}" in
+    arguments for per-worker paths (e.g. --database ani_{rank}.db).
+
+    Example: pyani-plus-tpu-torch launch -n 4 -- fastani genomes/ -d ani.db
+    --create-db
+    """
+    from pyani_plus_tpu_torch.parallel.distributed import launch_local
+
+    if not command:
+        raise click.UsageError("No command given to launch")
+    code = launch_local(processes, list(command))
+    if code:
+        sys.exit(code)
 
 
 @app.command(name="anim")

@@ -24,10 +24,12 @@ scoring goes to the CUDA kernel (``ops/sw.py``) when CUDA is present and
 to the plain PyTorch version on a CPU-only host; both return the score
 and the winning cell exactly, so the rows are the JAX package's rows.
 
-Against the JAX package's device path: one launch per pooled group, at
-any window width (no bucket ladder, no padding, no host scoring of wide
-windows), and always with the winning cell, so ``PYANI_TPU_ANIB_PALLAS``
-and ``PYANI_TPU_ANIB_BATCH`` have no meaning here.
+Against the JAX package's device path: one launch per pooled group (one
+a device when the pair-grid mesh splits the group over several cards,
+as ``dp_jax._dispatch_sharded`` splits it), at any window width (no
+bucket ladder, no padding, no host scoring of wide windows), and always
+with the winning cell, so ``PYANI_TPU_ANIB_PALLAS`` and
+``PYANI_TPU_ANIB_BATCH`` have no meaning here.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ from functools import lru_cache
 from math import log
 
 import numpy as np
-import torch
 
 from pyani_plus_tpu_torch import __version__, backend, native
 from pyani_plus_tpu_torch.genomes import Genome, complement_codes
@@ -58,7 +59,7 @@ from pyani_plus_tpu_torch.ops.seeds import (
     candidate_bands,
     pack_kmers,
 )
-from pyani_plus_tpu_torch.ops.sw import batch_sw_best, pack_tasks, sw_cuda
+from pyani_plus_tpu_torch.ops.sw import batch_sw_best_collect, batch_sw_best_submit
 from pyani_plus_tpu_torch.utils import devmeter, intra_pair_workers
 
 __all__ = [
@@ -387,29 +388,24 @@ def _score_device_submit(pairs: list[Pair]):
     On the card this packs the tasks into page-locked memory, copies them
     over, launches the kernel and queues the copy of the results back,
     all without waiting: host work for other groups overlaps the card's.
-    On the CPU the plain version scores them here.
+    With a pair-grid mesh (``parallel/tiles.default_pair_mesh``: several
+    cards in this process) the batch is split over its devices, one
+    slice, copy, launch and event a device. On the CPU the plain version
+    scores them here.
     """
-    device = backend.kernel_device()
+    from pyani_plus_tpu_torch.parallel import tiles
+
+    mesh = tiles.default_pair_mesh()
+    devices = [backend.kernel_device()] if mesh is None else list(mesh.devices.flat)
     t_submit = devmeter.now()
-    if device.type != "cuda":
-        return batch_sw_best(pairs, device), None, t_submit
-    packed = [
-        t.to(device, non_blocking=True) for t in pack_tasks(pairs, pin_memory=True)
-    ]
-    out = torch.empty((len(pairs), 3), dtype=torch.int32, pin_memory=True)
-    out.copy_(sw_cuda(*packed), non_blocking=True)
-    arrived = torch.cuda.Event()
-    arrived.record()
-    return out, arrived, t_submit
+    return batch_sw_best_submit(pairs, devices), t_submit
 
 
 def _score_device_collect(state) -> tuple[list[int], list[tuple[int, int]]]:
     """Wait for a submitted batch: (scores, trims) per pair, where
     ``trims[i]`` is the winning (best_i, best_j) cell."""
-    out, arrived, t_submit = state
-    if arrived is not None:
-        arrived.synchronize()
-        out = out.tolist()
+    parts, t_submit = state
+    out = batch_sw_best_collect(parts)
     devmeter.record(t_submit)
     return [row[0] for row in out], [(row[1], row[2]) for row in out]
 

@@ -15,6 +15,12 @@ constants are that module's host half, kept as it is there.
   most ``block`` < 2^24, and the blocks add up in float64, exact below
   2^53. (bf16 or fp16 operands would not do: ``torch.matmul`` returns
   their own type, which rounds counts above 256 or 2048.)
+  On a process with several cards the Gram is split over the pair-grid
+  mesh (``mesh="auto"``: ``parallel/tiles.default_pair_mesh``), as the
+  JAX package shards it: each device scatters the membership of its
+  tile's rows from the same indices and accumulates its tile, and the
+  tiles meet on the mesh's first device (``gram``; one device is a mesh
+  of one). The counts are the unsplit Gram's, bit for bit, for any grid.
 - ``containment_ani``: the sourmash method's (identity, coverage), with
   the JAX package's threshold for the device Gram.
 - ``sketch_genomes_device``: the host sketch's hashes, computed on the
@@ -44,7 +50,9 @@ __all__ = [
     "DEFAULT_KMER",
     "DEFAULT_SCALED",
     "Sketch",
+    "block_indices",
     "containment_ani",
+    "gram",
     "intersection_matrix_device",
     "intersection_matrix_host",
     "max_hash_for_scaled",
@@ -151,19 +159,26 @@ def incidence(sketches: list[Sketch], block: int) -> np.ndarray:
     """The (nblocks, p_max) int32 flat scatter indices of each id block.
 
     As the JAX package prepares them: the union of all hashes gives each
-    hash an id, ids are cut into blocks of ``block``, and each block's
-    (genome, id) pairs become indices ``genome * block + id % block`` into
-    the block's flattened (N, block) membership. The pad value
-    ``N * block`` scatters into one spare slot.
+    hash an id, and :func:`block_indices` cuts the (genome, id) pairs
+    into blocks.
     """
     n = len(sketches)
     sizes = [s.hashes.size for s in sketches]
     all_hashes = np.concatenate([s.hashes for s in sketches])
-    union, inverse = np.unique(all_hashes, return_inverse=True)
-    nblocks = -(-union.size // block)
+    _, inverse = np.unique(all_hashes, return_inverse=True)
     rows = np.repeat(np.arange(n, dtype=np.int64), sizes)
-    order = np.argsort(inverse, kind="stable")
-    ids_sorted = inverse[order]
+    return block_indices(rows, inverse, n, block)
+
+
+def block_indices(rows: np.ndarray, ids: np.ndarray, n: int, block: int) -> np.ndarray:
+    """The (row, id) entries of an (n, ids) {0,1} membership matrix as
+    :func:`gram`'s indices: ids are cut into blocks of ``block``, and each
+    block's entries become indices ``row * block + id % block`` into the
+    block's flattened (n, block) membership. The pad value ``n * block``
+    scatters into one spare slot."""
+    nblocks = -(-(int(ids.max()) + 1) // block)
+    order = np.argsort(ids, kind="stable")
+    ids_sorted = ids[order]
     rows_sorted = rows[order]
     per_block = np.bincount(ids_sorted // block, minlength=nblocks)
     flat = (rows_sorted * block + (ids_sorted % block)).astype(np.int32)
@@ -175,20 +190,63 @@ def incidence(sketches: list[Sketch], block: int) -> np.ndarray:
     return pts
 
 
-def gram(pts: torch.Tensor, n: int, block: int) -> torch.Tensor:
-    """The (n, n) float64 counts from ``incidence``'s indices, on their device."""
-    device = pts.device
-    pts = pts.long()
-    counts = torch.zeros((n, n), dtype=torch.float64, device=device)
-    product = torch.empty((n, n), dtype=torch.float32, device=device)
-    member = torch.empty(n * block + 1, dtype=torch.float32, device=device)
+def _rows_indices(pts: torch.Tensor, lo: int, hi: int, block: int) -> torch.Tensor:
+    """``block_indices``'s flat indices re-based onto the rows [lo, hi) of
+    each block's membership; entries of other rows, and the pad, go to the
+    one spare slot past them."""
+    local = pts - lo * block
+    spare = (hi - lo) * block
+    return torch.where((local >= 0) & (local < spare), local, spare)
+
+
+def gram(pts, n: int, block: int, mesh=None) -> np.ndarray:
+    """The (n, n) int64 counts from :func:`block_indices`'s indices (a
+    numpy array or a tensor), over ``mesh`` (default: the one device that
+    ``pts`` lies on).
+
+    Device (i, j) of the mesh scatters each block's membership of its "q"
+    rows and of its "s" rows (one scatter on the diagonal) and accumulates
+    their float32 products in a float64 tile; the tiles are gathered on
+    the mesh's first device and copied to the host. Blocks go round the devices in turn, so that devices that
+    are distinct cards work at the same time.
+    """
+    from pyani_plus_tpu_torch.parallel.tiles import make_mesh, mesh_tiles
+
+    pts = torch.as_tensor(pts)
+    if mesh is None:
+        mesh = make_mesh(devices=[pts.device])
+    on_device: dict[torch.device, torch.Tensor] = {}
+    work = []
+    for device, (r0, r1), (c0, c1) in mesh_tiles(n, mesh):
+        if r0 == r1 or c0 == c1:
+            continue
+        if device not in on_device:
+            on_device[device] = pts.to(device).long()
+        q_idx = _rows_indices(on_device[device], r0, r1, block)
+        s_idx = q_idx if (c0, c1) == (r0, r1) else _rows_indices(on_device[device], c0, c1, block)
+        q_mem = torch.empty((r1 - r0) * block + 1, dtype=torch.float32, device=device)
+        s_mem = q_mem if s_idx is q_idx else torch.empty(
+            (c1 - c0) * block + 1, dtype=torch.float32, device=device
+        )
+        product = torch.empty((r1 - r0, c1 - c0), dtype=torch.float32, device=device)
+        tile = torch.zeros((r1 - r0, c1 - c0), dtype=torch.float64, device=device)
+        work.append(((r0, r1, c0, c1), q_idx, s_idx, q_mem, s_mem, product, tile))
     for b in range(pts.shape[0]):
-        member.zero_()
-        member.index_fill_(0, pts[b], 1.0)
-        m = member[:-1].view(n, block)
-        torch.matmul(m, m.T, out=product)
-        counts += product
-    return counts
+        for (r0, r1, c0, c1), q_idx, s_idx, q_mem, s_mem, product, tile in work:
+            q_mem.zero_()
+            q_mem.index_fill_(0, q_idx[b], 1.0)
+            if s_mem is not q_mem:  # off the diagonal
+                s_mem.zero_()
+                s_mem.index_fill_(0, s_idx[b], 1.0)
+            q = q_mem[:-1].view(r1 - r0, block)
+            s = s_mem[:-1].view(c1 - c0, block)
+            torch.matmul(q, s.T, out=product)
+            tile += product
+    # the tiles meet on the mesh's first device, so the host takes one copy
+    counts = torch.empty((n, n), dtype=torch.int64, device=mesh.devices.flat[0])
+    for (r0, r1, c0, c1), *_, tile in work:
+        counts[r0:r1, c0:c1] = tile.to(counts.device, torch.int64)
+    return counts.cpu().numpy()  # synchronises
 
 
 def intersection_matrix_device(
@@ -196,22 +254,36 @@ def intersection_matrix_device(
     *,
     block: int = 4096,
     device: torch.device | str | None = None,
+    mesh="auto",
 ) -> np.ndarray:
-    """All-pairs ``|A n B|`` by blocked membership products on ``device``
-    (default: the card when CUDA is present). Returns (N, N) int64."""
+    """All-pairs ``|A n B|`` by blocked membership products. Returns (N,
+    N) int64.
+
+    ``mesh="auto"`` splits the counts over ``default_pair_mesh()`` (every
+    card of a process that has several); ``mesh=None``, or a ``device``,
+    keeps them on one device (default: this process's card when CUDA is
+    present).
+    """
     global LAUNCHES
+    from pyani_plus_tpu_torch.parallel.tiles import default_pair_mesh, make_mesh
+
     if not 0 < block < 1 << 24:
         msg = f"block must be in [1, 2^24), got {block}"
         raise ValueError(msg)
-    device = torch.device(device) if device is not None else backend.kernel_device()
+    if device is not None and mesh not in ("auto", None):
+        msg = "give intersection_matrix_device a device or a mesh, not both"
+        raise ValueError(msg)
+    if mesh == "auto":
+        mesh = default_pair_mesh() if device is None else None
+    if mesh is None:
+        mesh = make_mesh(devices=[device if device is not None else backend.kernel_device()])
     n = len(sketches)
     if sum(s.hashes.size for s in sketches) == 0:
         return np.zeros((n, n), dtype=np.int64)
     pts = incidence(sketches, block)
     t_submit = devmeter.now()
-    counts = gram(torch.from_numpy(pts).to(device), n, block)
-    out = counts.to(torch.int64).cpu().numpy()  # synchronises
-    if device.type == "cuda":
+    out = gram(pts, n, block, mesh)
+    if any(d.type == "cuda" for d in mesh.devices.flat):
         LAUNCHES += 1
         devmeter.record(t_submit)
     return out
@@ -236,7 +308,7 @@ def ani_from_counts(inter: np.ndarray, sketches: list[Sketch], ksize: int) -> tu
 
 
 def containment_ani(
-    sketches: list[Sketch], *, use_device: bool | None = None
+    sketches: list[Sketch], *, use_device: bool | None = None, mesh="auto"
 ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (identity, cov_query) matrices for the sourmash method.
 
@@ -244,7 +316,7 @@ def containment_ani(
     where c_qs = |Q n S| / |Q|; NaN where nothing is shared. By default
     the counts come from the device Gram for at least 64 sketches holding
     more than 2^18 hashes in all, and from the host Gram otherwise (the
-    JAX package's threshold).
+    JAX package's threshold). ``mesh`` is the device Gram's.
     """
     n = len(sketches)
     ksize = sketches[0].ksize if sketches else DEFAULT_KMER
@@ -252,7 +324,7 @@ def containment_ani(
         total = sum(s.hashes.size for s in sketches)
         use_device = n >= 64 and total > 1 << 18
     inter = (
-        intersection_matrix_device(sketches)
+        intersection_matrix_device(sketches, mesh=mesh)
         if use_device
         else intersection_matrix_host(sketches)
     )

@@ -18,7 +18,11 @@ code >= 4 never matches: N == N, IUPAC letters and the padding code 5.
 - ``batch_sw_best_host`` is the native oracle: the host score kernel and
   the host stats DP's winning cell.
 - ``batch_sw_best`` sends a CUDA device to the kernel and the CPU to the
-  plain version. Nothing falls back from one to the other.
+  plain version. Nothing falls back from one to the other. Given a list
+  of devices it splits the tasks over them (``batch_sw_best_submit`` /
+  ``batch_sw_best_collect``), the counterpart of ``dp_jax``'s
+  ``_dispatch_sharded``: one contiguous slice a device, in order, each
+  CUDA slice launched on its own device's current stream.
 
 The scoring constants are the host DP's (``ops/dp.py``).
 """
@@ -38,9 +42,11 @@ from pyani_plus_tpu_torch.utils import devmeter
 
 __all__ = [
     "batch_sw_best",
+    "batch_sw_best_collect",
     "batch_sw_best_cuda",
     "batch_sw_best_host",
     "batch_sw_best_reference",
+    "batch_sw_best_submit",
     "pack_tasks",
     "reset_counts",
     "sw_cuda",
@@ -253,8 +259,68 @@ def batch_sw_best_host(tasks: list[Task], *, workers: int = 1) -> list[Result]:
         return list(pool.map(one, tasks))
 
 
-def batch_sw_best(tasks: list[Task], device: torch.device | str) -> list[Result]:
-    """The kernel for a CUDA device, the plain version for the CPU."""
+def slice_bounds(count: int, parts: int) -> list[tuple[int, int]]:
+    """``parts`` contiguous slices of ``count`` tasks, in order, their
+    lengths at most one apart."""
+    edges = [count * i // parts for i in range(parts + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+# One part of a split batch: the results of a slice that is done (the
+# plain version's), or a page-locked (b, 3) tensor that a CUDA slice's
+# results are being copied into and the event that marks their arrival.
+Part = tuple[list[Result] | torch.Tensor, "torch.cuda.Event | None"]
+
+
+def batch_sw_best_submit(tasks: list[Task], devices: list) -> list[Part]:
+    """Start the tasks split over ``devices``: one contiguous slice a
+    device, in order. A CUDA slice is packed into page-locked memory,
+    copied to its device, launched on that device's current stream, and
+    its results are queued back with an event, without waiting; a CPU
+    slice runs the plain version here.
+
+    The JAX package pads the batch to a multiple of the device count with
+    ``PAD_CODE`` rows, since a sharded array needs equal shards. Tasks
+    are independent and a launch takes any count, so slices need no
+    padding: their lengths differ by at most one.
+    """
+    devices = [torch.device(d) for d in devices]
+    parts: list[Part] = []
+    for device, (lo, hi) in zip(devices, slice_bounds(len(tasks), len(devices))):
+        chunk = tasks[lo:hi]
+        if device.type == "cpu" or not chunk:
+            parts.append((batch_sw_best_reference(chunk), None))
+            continue
+        if device.type != "cuda":
+            msg = f"no Smith-Waterman path for device {device}"
+            raise ValueError(msg)
+        with torch.cuda.device(device):  # the event and the copy on this card's stream
+            packed = [t.to(device, non_blocking=True) for t in pack_tasks(chunk, pin_memory=True)]
+            out = torch.empty((len(chunk), 3), dtype=torch.int32, pin_memory=True)
+            out.copy_(sw_cuda(*packed), non_blocking=True)
+            arrived = torch.cuda.Event()
+            arrived.record()
+        parts.append((out, arrived))
+    return parts
+
+
+def batch_sw_best_collect(parts: list[Part]) -> list[Result]:
+    """Wait for each part of a submitted batch (its own event, nothing
+    device-wide) and return the results in task order."""
+    results: list[Result] = []
+    for out, arrived in parts:
+        if arrived is not None:
+            arrived.synchronize()
+            out = [tuple(row) for row in out.tolist()]
+        results.extend(out)
+    return results
+
+
+def batch_sw_best(tasks: list[Task], device: torch.device | str | list) -> list[Result]:
+    """The kernel for a CUDA device, the plain version for the CPU; a
+    list of devices splits the tasks over them."""
+    if isinstance(device, (list, tuple)):
+        return batch_sw_best_collect(batch_sw_best_submit(tasks, device))
     device = torch.device(device)
     if device.type == "cuda":
         return batch_sw_best_cuda(tasks, device=device)

@@ -4,11 +4,14 @@ Port of ``pyani_plus_tpu/parallel/runner.py`` with the same contract:
 duplicate-MD5 check, idempotent genome/configuration/run rows, pending
 pairs derived from the store (comparisons of any earlier run with the
 same configuration are reused), incremental flushes, graceful
-interrupts, the version check on resume and the cached matrices. It
-differs in what reached JAX there: it runs as a single process (no
-process group; ``PYANI_TPU_PROCESS_COUNT``/``INDEX`` still give a static
-share of the pair grid), ``PYANI_TPU_PROFILE=<dir>`` writes a
-``torch.profiler`` trace, and the progress bar needs ``rich``.
+interrupts, the version check on resume and the cached matrices, and
+the same process group: launched as one (``launch``, or a cluster
+launcher with the opt-in), a run joins the ``torch.distributed`` group
+(``parallel/distributed.py``), host 0's pending set is broadcast, each
+host computes its static share of the pair grid, and the rows merge
+through an all-gather into host 0's store. It differs in what reached JAX
+there: ``PYANI_TPU_PROFILE=<dir>`` writes a ``torch.profiler`` trace,
+and the progress bar needs ``rich``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from pyani_plus_tpu_torch import __version__, backend, log_sys_exit
 from pyani_plus_tpu_torch.db import Database, Run
 from pyani_plus_tpu_torch.genomes import Genome, load_genome
 from pyani_plus_tpu_torch.methods import ComputeContext, get_method
+from pyani_plus_tpu_torch.parallel import distributed
 from pyani_plus_tpu_torch.parallel.tiles import owned_pairs
 from pyani_plus_tpu_torch.utils import check_fasta, file_md5sum
 
@@ -240,8 +244,17 @@ def resume_run(  # noqa: PLR0913, C901
         }
     backend.probe()
 
+    # Join the process group when launched as one (the `launch` command or
+    # a cluster launcher sets the coordinator env).
+    dist_index, dist_count = distributed.maybe_initialize(logger)
+    collective = dist_count > 1
+
     done = db.existing_pairs(run.configuration_id, hashes)
     pending = {(q, s) for q in hashes for s in hashes if (q, s) not in done}
+    if collective:
+        # Host 0's store is authoritative; workers may hold private
+        # database files (no shared filesystem needed).
+        pending = distributed.broadcast_pending(pending, dist_index)
     logger.info(
         "Run %d: %d of %d comparisons already done, %d pending",
         run.run_id,
@@ -252,9 +265,12 @@ def resume_run(  # noqa: PLR0913, C901
 
     # Static share of the pair grid per host (parallel/tiles.owned_pairs);
     # INSERT OR IGNORE makes the merge idempotent and `resume` sweeps up
-    # whatever a host never computed.
-    proc_count = int(os.environ.get("PYANI_TPU_PROCESS_COUNT", "0")) or 1
+    # whatever a host never computed. Host identity comes from the
+    # PYANI_TPU_PROCESS_{INDEX,COUNT} env, else from the process group.
+    proc_count = int(os.environ.get("PYANI_TPU_PROCESS_COUNT", "0"))
     proc_index = int(os.environ.get("PYANI_TPU_PROCESS_INDEX", "0"))
+    if not proc_count:
+        proc_count, proc_index = dist_count, dist_index
     if proc_count > 1:
         mine = {
             (hashes[q], hashes[s]) for q, s in owned_pairs(n, proc_index, proc_count)
@@ -310,11 +326,37 @@ def resume_run(  # noqa: PLR0913, C901
             with progress:
                 rows = _compute(logger, method, ctx)
         except KeyboardInterrupt:
-            logger.error("Interrupted; marking run as 'Worker interrupted'")
-            run.set_status("Worker interrupted")
-            return run.run_id
-        interrupted = ctx is not None and ctx.interrupted
+            if not collective:
+                logger.error("Interrupted; marking run as 'Worker interrupted'")
+                run.set_status("Worker interrupted")
+                return run.run_id
+            # In a process group, still join the merge below with
+            # whatever was completed so the peers don't deadlock.
+            interrupted = True
+        interrupted = interrupted or (ctx is not None and ctx.interrupted)
 
+    if collective:
+        # The collective merge replaces the reference's polled JSON
+        # import: every host receives the union, and host 0 stores it, so
+        # its store ends complete even when workers use private
+        # databases. EVERY host joins, those with no pending share too
+        # (the gather is also the completion barrier). It stays OUTSIDE
+        # the signal-defer window: it is a network barrier that blocks if
+        # a peer dies, and the worker must stay interruptible during it
+        # -- an interrupt falls through to persist this host's own rows.
+        try:
+            gathered = distributed.allgather_comparisons(rows)
+            logger.info(
+                "Collective merge: %d local + %d remote comparisons",
+                len(rows),
+                len(gathered) - len(rows),
+            )
+            rows = gathered if dist_index == 0 else rows
+        except KeyboardInterrupt:  # pragma: no cover - timing dependent
+            logger.error(
+                "Interrupted during collective merge; keeping this host's local results"
+            )
+            interrupted = True
     with _defer_interrupts(logger):
         if rows:
             db.insert_comparisons(rows, configuration_id=run.configuration_id)
@@ -326,7 +368,8 @@ def resume_run(  # noqa: PLR0913, C901
         final = run.comparisons_count()
         if final != n * n:
             if proc_count > 1:
-                # Another host still owns the missing pairs.
+                # Another host still owns the missing pairs; whoever
+                # finishes last (or a `resume`) completes and caches the run.
                 logger.info(
                     "Host %d/%d done with its share: %d of %d comparisons stored",
                     proc_index,

@@ -83,13 +83,13 @@ def test_compute_matches_jax(genomes, jax_rows, monkeypatch, group) -> None:
     """Group sizes 1 and 2 (3 queries per subject): the lookahead
     pipeline drains across groups, and the last group is short."""
     launched: list[int] = []
-    real = anib.batch_sw_best
+    real = anib.batch_sw_best_submit
 
-    def spy(tasks, device):
+    def spy(tasks, devices):
         launched.append(len(tasks))
-        return real(tasks, device)
+        return real(tasks, devices)
 
-    monkeypatch.setattr(anib, "batch_sw_best", spy)
+    monkeypatch.setattr(anib, "batch_sw_best_submit", spy)
     monkeypatch.setenv("PYANI_TPU_ANIB_DEVICE", "1")
     monkeypatch.setenv("PYANI_TPU_ANIB_GROUP", str(group))
     got = _rows(anib, genomes)

@@ -115,11 +115,12 @@ def test_resume_across_packages(
 
 
 def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path) -> None:
-    """The port has every command of the JAX package but ``launch`` (no
-    process group yet), the report and host-method commands are its own
-    copies with the JAX package's options, and a run of a method it does
-    not know (a made-up name) cannot be resumed by it."""
-    assert set(torch_app.commands) == set(jax_app.commands) - {"launch"}
+    """The port has every command of the JAX package, ``launch`` included;
+    the report, host-method and ``launch`` commands are its own copies with
+    the JAX package's options, and a run of a method it does not know (a
+    made-up name) cannot be resumed by it."""
+    assert set(torch_app.commands) == set(jax_app.commands)
+    assert "launch" in torch_app.commands
     for name in sorted(set(torch_app.commands) - {"anim", "dnadiff", "anib", "sourmash", "resume"}):
         mine, theirs = torch_app.commands[name], jax_app.commands[name]
         assert mine is not theirs
@@ -169,8 +170,8 @@ from pyani_plus_tpu_torch.ops.seeds import SeedIndex
 batches, sw_batches = [], []
 real = anim.batch_extend_submit
 anim.batch_extend_submit = lambda tasks, device, **kw: batches.append(len(tasks)) or real(tasks, device, **kw)
-real_sw = anib.batch_sw_best
-anib.batch_sw_best = lambda tasks, device: sw_batches.append(len(tasks)) or real_sw(tasks, device)
+real_sw = anib.batch_sw_best_submit
+anib.batch_sw_best_submit = lambda tasks, devices: sw_batches.append(len(tasks)) or real_sw(tasks, devices)
 q, s = (load_genome(p) for p in {[str(p) for p in fastas]!r})
 row = anim.compute_pair(q, s)
 anib_row = anib.compute_pair(q, s, [SeedIndex(r.codes) for r in s.records], 1020)

@@ -1,7 +1,8 @@
 """The port's copies of the host-only methods are copies.
 
 fastANI, skani, ANIminimap2 and external-alignment run on the host in the
-JAX package, and the port keeps its own copy of every module they use.
+JAX package, and the port keeps its own copy of every module they use,
+and of the skani debias simulation (``analysis/``, numpy only).
 Each copy equals its original once ``pyani_plus_tpu`` is read as
 ``pyani_plus_tpu_torch``; the C++ sources are byte for byte the same. In
 ``native/__init__.py`` only the loaders differ (the port builds through
@@ -28,6 +29,8 @@ MODULES = [
     "methods/skani.py",
     "methods/animinimap2.py",
     "methods/external_alignment.py",
+    "analysis/__init__.py",
+    "analysis/skani_debias_sim.py",
 ]
 SOURCES = ["native/fastani.cpp", "native/mm2.cpp"]
 # native/__init__.py: the original's loaders (and its in-place build),
@@ -80,3 +83,19 @@ def test_native_wrappers_are_copies_and_only_the_loaders_differ() -> None:
         # and the port's loader is _bound(name, _bind_<name>)
         (statement,) = port[loader].body
         assert ast.unparse(statement) == f"return _bound({binder.removeprefix('_bind_')!r}, {binder})"
+
+
+@pytest.mark.parametrize("d_total", [0.01, 0.08])
+def test_debias_simulation_gives_the_originals_numbers(d_total: float) -> None:
+    """The copied simulation, driven from one seed through both packages,
+    evolves the same genome and measures the same raw skani estimate."""
+    import numpy as np
+
+    from pyani_plus_tpu.analysis import skani_debias_sim as jax_sim
+    from pyani_plus_tpu_torch.analysis import skani_debias_sim as port_sim
+
+    codes = np.random.default_rng(3).integers(0, 4, 120_000).astype(np.uint8)
+    derived, true_id = port_sim.evolve(codes, np.random.default_rng(9), d_total=d_total, n_inv=1)
+    expected, expected_id = jax_sim.evolve(codes, np.random.default_rng(9), d_total=d_total, n_inv=1)
+    assert np.array_equal(derived, expected) and true_id == expected_id
+    assert port_sim.measure_raw(codes, derived) == jax_sim.measure_raw(codes, expected)

@@ -50,7 +50,8 @@ def test_sources_were_found() -> None:
                      "pyani_plus_tpu_torch/report/classify.py",
                      *(f"pyani_plus_tpu_torch/{m}.py" for m in (
                          "ops/minimizers", "ops/fastani_map", "ops/mm2", "methods/fastani",
-                         "methods/skani", "methods/animinimap2", "methods/external_alignment"))):  # fmt: skip
+                         "methods/skani", "methods/animinimap2", "methods/external_alignment",
+                         "parallel/distributed", "parallel/tiles", "analysis/skani_debias_sim"))):  # fmt: skip
         assert expected in SOURCES
 
 
