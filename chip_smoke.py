@@ -52,13 +52,20 @@ of which raises on failure (so the exit code is not 0):
    N = 1,000 split over a 2 x 2 mesh that names the card four times,
    counts equal to the unsplit Gram; the SW kernel's main shape split over
    the card named twice, tuples equal to one launch; ANIb through the
-   runner with the pair-grid mesh replaced by the card named twice, rows
+   runner with the pair-grid mesh set to the card named twice, rows
    equal to phase 6's in more launches; ANIm under ``launch -n 2`` with
    private databases, host 0's rows equal to phase 5's, host 1 holding
    its share, both workers' logs showing the card, neither worker
    importing jax or the JAX package. On one card the times show what the
    split costs, not how it scales;
-10. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+10. the entry points of ``graft_entry.py``: the Gram step of ``entry()`` on
+    the card equal to the same call on the CPU, on seeded {0, 1} blocks;
+    ``dryrun_multichip(4)`` over a 2 x 2 mesh that names the card four
+    times (the containment, the merge, the alignment DP in 4 launches of
+    the SW kernel, and a two-host ANIb run through the runner, which
+    launches it too), its closing line printed; on a machine with several
+    cards, the dry run again over all of them;
+11. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -999,7 +1006,7 @@ def check_split_paths(torch, minhash, sw, runner, logger, work: Path, genomes: P
 
     (a) the Gram at N = 1,000 split over a 2 x 2 mesh that names the card
     four times; (b) the SW kernel's main shape split over the card named
-    twice; (c) ANIb through the runner with the pair-grid mesh replaced by
+    twice; (c) ANIb through the runner with the pair-grid mesh set to
     the card named twice; (d) ANIm under `launch -n 2` with private
     databases. On one card these timings show what the split costs, not
     how it scales: every part runs on the same card, in turn.
@@ -1044,14 +1051,9 @@ def check_split_paths(torch, minhash, sw, runner, logger, work: Path, genomes: P
     done("split SW", t0)
 
     anib_launches, anib_rows = anib
-    mesh = tiles.make_mesh(devices=[card, card])
-    real = tiles.default_pair_mesh
-    tiles.default_pair_mesh = lambda: mesh
-    try:
+    with tiles.pair_mesh(tiles.make_mesh(devices=[card, card])):
         rows, launches, seconds = run_method(sw, runner, logger, work, genomes, "ANIb",
                                              "anib_mesh", host_env=None)
-    finally:
-        tiles.default_pair_mesh = real
     if rows != anib_rows:
         raise AssertionError("ANIb through the mesh differs from phase 6's rows")
     if not launches > anib_launches:
@@ -1116,6 +1118,53 @@ def check_split_paths(torch, minhash, sw, runner, logger, work: Path, genomes: P
     done("launch", t0)
 
 
+def check_graft_entry(torch, sw, smi: str) -> None:
+    """Phase 10: the entry points of graft_entry.py on the card. The Gram
+    step of `entry()` against the same call on the CPU (exact integers in
+    float32), then `dryrun_multichip(4)` over a 2 x 2 mesh that names the
+    card four times: the SW kernel's launch counts are zeroed just before it and
+    read just after, per step from what the dry run returns."""
+    import io
+
+    from pyani_plus_tpu_torch import graft_entry
+
+    card = torch.device("cuda", 0)
+    t0 = phase("graft entry: the Gram step on the card, and the dry run over the card "
+               "named four times")
+    fn, args = graft_entry.entry()
+    if any(a.device != card for a in args):
+        raise AssertionError(f"entry()'s arguments are on {[str(a.device) for a in args]}")
+    rng = np.random.default_rng(SEED + 10)
+    rows, block = args[1].shape
+    inputs = [rng.integers(0, 1 << 16, (rows, rows)).astype(np.float32),
+              (rng.random((rows, block)) < 0.3).astype(np.int8),
+              (rng.random((rows, block)) < 0.3).astype(np.int8)]  # fmt: skip
+    on_card = fn(*(torch.from_numpy(x).to(card) for x in inputs)).cpu()
+    on_cpu = fn(*(torch.from_numpy(x) for x in inputs))
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError("the Gram step on the card differs from the CPU")
+    print(f"   Gram step {tuple(on_card.shape)} on the card == on the CPU, exactly")
+
+    sw.reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        record = graft_entry.dryrun_multichip(4, devices=[card] * 4)
+    launches = sw.LAUNCHES
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"   {line}")
+    if not line.startswith("dryrun_multichip OK: mesh (2, 2) (4 devices)"):
+        raise AssertionError("the dry run printed no closing line")
+    steps = record["sw_launches"]
+    if steps["alignment"] != 4 or not steps["runner"] > 0 or sum(steps.values()) != launches:
+        raise AssertionError(f"SW kernel launches {steps}, {launches} in all; the alignment "
+                             "step needs 4 and the runner more than 0")
+    print(f"   SW kernel launches in the dry run: alignment step {steps['alignment']}, "
+          f"runner step {steps['runner']} ({smi})")
+    if torch.cuda.device_count() >= 2:
+        graft_entry.dryrun_multichip(torch.cuda.device_count())
+    print(f"   graft entry wall seconds: {time.monotonic() - t0:.3f} ({smi})", flush=True)
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1175,6 +1224,7 @@ def main() -> int:
         check_host_methods((ext, sw), _build, runner, logger, work, alignment)
         check_split_paths(torch, minhash, sw, runner, logger, work, paths[0].parent,
                           gram_scale, anim, anib, report.smi)
+        check_graft_entry(torch, sw, report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")

@@ -14,11 +14,14 @@ process of a torch group owns one card (``backend.kernel_device``), so
 :func:`default_pair_mesh` gives no mesh inside a group of several
 processes. A device may stand in the grid more than once (the same card
 twice, or the CPU several times), which tests and the smoke run use to
-check the split on one device.
+check the split on one device; :func:`pair_mesh` names such a grid as the
+production mesh for a while, where the JAX package would set its virtual
+device count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 
@@ -49,10 +52,13 @@ def make_mesh(
     devices: list | None = None,
 ) -> Mesh:
     """Build a 2D mesh over ``devices`` (default: this process's CUDA
-    devices, or the CPU without one), q-major, as square as possible."""
+    devices; without CUDA the caller names the CPU), q-major, as square
+    as possible."""
     if devices is None:
-        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devices = [torch.device("cuda", i) for i in range(count)] or [torch.device("cpu")]
+        if not torch.cuda.is_available():
+            msg = "no CUDA device: name the mesh's devices (devices=[torch.device('cpu')] * n)"
+            raise RuntimeError(msg)
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -71,11 +77,32 @@ def make_mesh(
 
 
 _DEFAULT_MESH_CACHE: dict[tuple, Mesh] = {}
+# The mesh that pair_mesh() has set, None when no pair_mesh() is open
+_PAIR_MESH: Mesh | None = None
+
+
+@contextlib.contextmanager
+def pair_mesh(mesh: Mesh):
+    """Make ``mesh`` the production pair-grid mesh while the block runs:
+    :func:`default_pair_mesh` returns it, and the previous setting comes
+    back on exit. The port's counterpart of the JAX package's virtual
+    device count (``--xla_force_host_platform_device_count``), with which
+    the multi-device dry run drives the production paths over a mesh of
+    one card or of the CPU. A plain module-level setting: it holds for
+    every thread of the process."""
+    global _PAIR_MESH
+    previous = _PAIR_MESH
+    _PAIR_MESH = mesh
+    try:
+        yield mesh
+    finally:
+        _PAIR_MESH = previous
 
 
 def default_pair_mesh() -> Mesh | None:
-    """The production pair-grid mesh: every CUDA device of this process
-    when there are two or more, else None.
+    """The production pair-grid mesh: the one :func:`pair_mesh` set, else
+    every CUDA device of this process when there are two or more, else
+    None.
 
     A multi-card process automatically splits the pair-grid work (the
     sourmash containment Gram, ANIb's batched Smith-Waterman) over this
@@ -85,6 +112,8 @@ def default_pair_mesh() -> Mesh | None:
     """
     from pyani_plus_tpu_torch.parallel import distributed
 
+    if _PAIR_MESH is not None:
+        return _PAIR_MESH
     if os.environ.get("PYANI_TPU_MESH", "1") == "0":
         return None
     if distributed.is_initialized() and torch.distributed.get_world_size() > 1:

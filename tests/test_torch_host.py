@@ -16,11 +16,9 @@ must load, and the fixture fails if one does not.
 from __future__ import annotations
 
 import dataclasses
-import fcntl
 import gzip
 import logging
 import shutil
-import subprocess
 import tempfile
 from pathlib import Path
 
@@ -85,20 +83,10 @@ NUCMER = (3, -7, -13, -7)  # match, mismatch, gap open, gap extend
 
 NATIVE_NAMES = ("sketch", "align", "seedjoin", "suffix", "band", "mm2", "fastani", "chain")
 # The JAX package's loaders write lib*.so in place and give up for the
-# whole process after one failed load (pyani_plus_tpu/native/__init__.py:37-46),
-# so under xdist a worker that meets a library another worker is still
-# writing would skip every test here: every library is built now, while
-# each worker collects, one worker at a time, and the fixture below loads
-# again whatever a worker gave up on.
-if shutil.which("g++"):
-    with (Path(tempfile.gettempdir()) / "pyani_plus_tpu_native_build.lock").open("a") as _lock:
-        fcntl.flock(_lock, fcntl.LOCK_EX)
-        for _name in NATIVE_NAMES:
-            _src = Path(jax_native.__file__).with_name(f"{_name}.cpp")
-            try:
-                jax_native._build(_src, _src.with_name(f"lib{_name}.so"))
-            except (subprocess.CalledProcessError, OSError):
-                pass  # the fixture reports the library that does not load
+# whole process after one failed load (pyani_plus_tpu/native/__init__.py:37-46).
+# The repository's root conftest.py builds every library before any test
+# file is collected; the fixture below loads again whatever a worker
+# gave up on.
 
 
 @pytest.fixture(scope="module")

@@ -51,7 +51,8 @@ def test_sources_were_found() -> None:
                      *(f"pyani_plus_tpu_torch/{m}.py" for m in (
                          "ops/minimizers", "ops/fastani_map", "ops/mm2", "methods/fastani",
                          "methods/skani", "methods/animinimap2", "methods/external_alignment",
-                         "parallel/distributed", "parallel/tiles", "analysis/skani_debias_sim"))):  # fmt: skip
+                         "parallel/distributed", "parallel/tiles", "analysis/skani_debias_sim",
+                         "graft_entry"))):  # fmt: skip
         assert expected in SOURCES
 
 

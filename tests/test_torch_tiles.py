@@ -5,7 +5,8 @@ The JAX package shards over ``jax.devices()`` (tests/conftest.py gives it
 which here names the CPU several times. Exact throughout: integer counts
 equal, floats ``==``.
 
-- ``make_mesh`` has the JAX package's (q, s) shape and device order.
+- ``make_mesh`` has the JAX package's (q, s) shape and device order;
+  without CUDA it needs its devices named.
 - The split membership Gram (``intersection_matrix_device`` over a mesh,
   ``sharded_intersection_counts``) equals the unsplit Gram, scipy's and
   the JAX package's sharded Gram for every grid of 1 to 8 devices, with
@@ -72,6 +73,15 @@ def test_make_mesh_shape_and_order_are_the_jax_packages(n: int) -> None:
         [d.id for d in row] for row in expected.devices
     ]
     assert tiles.make_mesh(devices=_cpus(n)).shape == expected.devices.shape
+
+
+def test_make_mesh_without_cuda_needs_the_devices_named(monkeypatch) -> None:
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for n in (None, 1, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device: name the mesh's devices"):
+            tiles.make_mesh(n)
+    mesh = tiles.make_mesh(2, devices=_cpus(4))
+    assert mesh.shape == (1, 2) and all(d.type == "cpu" for d in mesh.devices.flat)
 
 
 @functools.cache
@@ -241,7 +251,6 @@ def test_anib_through_a_three_cpu_mesh_is_the_jax_packages(tmp_path, monkeypatch
         config={"fragsize": 1020},
     )  # fmt: skip
     mesh = tiles.make_mesh(devices=_cpus(3))
-    monkeypatch.setattr(tiles, "default_pair_mesh", lambda: mesh)
     monkeypatch.setenv("PYANI_TPU_ANIB_DEVICE", "1")
     split: list[list[torch.device]] = []
     real = anib.batch_sw_best_submit
@@ -254,7 +263,8 @@ def test_anib_through_a_three_cpu_mesh_is_the_jax_packages(tmp_path, monkeypatch
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # row-serial small tensors
     try:
-        got = sorted(tuple(r.values()) for r in anib.compute(ctx))
+        with tiles.pair_mesh(mesh):
+            got = sorted(tuple(r.values()) for r in anib.compute(ctx))
     finally:
         torch.set_num_threads(threads)
     assert split and all(device == _cpus(3) for device in split)
