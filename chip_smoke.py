@@ -65,7 +65,14 @@ of which raises on failure (so the exit code is not 0):
     the SW kernel, and a two-host ANIb run through the runner, which
     launches it too), its closing line printed; on a machine with several
     cards, the dry run again over all of them;
-11. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+11. the device choice: with ``PYANI_TPU_TORCH_DEVICE=cpu`` set in this
+    process, ANIm over one ordered pair of the genomes through the
+    runner gives phase 5's row, launches no kernel and allocates no CUDA
+    memory; with no card visible (``CUDA_VISIBLE_DEVICES=""``) and nothing
+    requested, the CLI's ``anim`` refuses in a subprocess, alone and under
+    ``launch -n 2``, within 60 s, its message naming the variable, and
+    stores no comparison;
+12. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -85,6 +92,7 @@ import logging
 import os
 import shutil
 import sqlite3
+import subprocess
 import sys
 import tempfile
 import time
@@ -1165,6 +1173,77 @@ def check_graft_entry(torch, sw, smi: str) -> None:
     print(f"   graft entry wall seconds: {time.monotonic() - t0:.3f} ({smi})", flush=True)
 
 
+def check_device_choice(torch, ext, runner, logger, work: Path, anim_rows: list[tuple],
+                        smi: str) -> None:
+    """Phase 11: the caller's device choice on a card machine. (a) The CPU
+    requested in this process: ANIm over one ordered pair through the
+    runner (a share of the 2 x 2 grid that holds one pair of two genomes)
+    on the native host kernels, its row equal to phase 5's, no extension
+    launch, no CUDA allocation. (b) and (c) No card visible and nothing
+    requested: the CLI refuses, alone and under ``launch -n 2``."""
+    from pyani_plus_tpu_torch import backend
+
+    pair = work / "pair"  # genome_0 and genome_1, written by phase 5
+    share = {backend.ENV_DEVICE: "cpu", "PYANI_TPU_PROCESS_COUNT": "4",
+             "PYANI_TPU_PROCESS_INDEX": "1"}  # fmt: skip
+    t0 = phase("ANIm over one ordered pair with the CPU requested, on a card machine")
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ext.reset_counts()
+    os.environ.update(share)
+    try:
+        runner.start_and_run_method(logger, work / "cpu_request.db", pair, "ANIm",
+                                    create_db=True)  # fmt: skip
+    finally:
+        for key in share:
+            os.environ.pop(key, None)
+    seconds = time.monotonic() - t0
+    rows = comparison_rows(work / "cpu_request.db")
+    if ext.LAUNCHES:
+        raise AssertionError(f"the CPU request launched the extension kernel {ext.LAUNCHES} times")
+    if torch.cuda.memory_allocated() != allocated or torch.cuda.max_memory_allocated() != allocated:
+        raise AssertionError("the CPU request allocated CUDA memory")
+
+    def stems(row: tuple) -> tuple:
+        return (Path(row[0]).stem, Path(row[1]).stem, *row[2:])
+
+    if len(rows) != 1 or rows[0][0] == rows[0][1]:
+        raise AssertionError(f"the CPU request stored {len(rows)} rows, not one ordered pair")
+    if stems(rows[0]) not in {stems(row) for row in anim_rows}:
+        raise AssertionError(f"the CPU request's row differs from phase 5's: {rows[0]}")
+    print(f"   {Path(rows[0][0]).stem} vs {Path(rows[0][1]).stem}: the row equals phase 5's; "
+          f"0 extension launches; CUDA memory allocated {allocated} bytes before and after, "
+          f"peak {torch.cuda.max_memory_allocated()}")
+    print(f"   CPU request wall s: {seconds:.3f} ({smi})")
+    done("cpu request", t0)
+
+    env = {key: value for key, value in os.environ.items() if key != backend.ENV_DEVICE}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PYTHONPATH"] = os.pathsep.join([str(Path(__file__).resolve().parent),
+                                         *filter(None, [os.environ.get("PYTHONPATH")])])
+    for tag, prefix in (("alone", []), ("launch -n 2", ["launch", "-n", "2", "--"])):
+        db = f"refused_{len(prefix)}_{{rank}}.db" if prefix else "refused.db"
+        t0 = phase(f"anim with no card visible and nothing requested: {tag}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "pyani_plus_tpu_torch.cli.main", *prefix, "anim",
+             str(pair), "-d", str(work / db), "--create-db"],
+            capture_output=True, text=True, env=env, timeout=60, check=False,
+        )  # fmt: skip
+        seconds = time.monotonic() - t0
+        stored = [work / db.format(rank=rank) for rank in range(2 if prefix else 1)]
+        if proc.returncode in (0, 124):
+            raise AssertionError(f"anim ({tag}) with no card exited {proc.returncode}")
+        if "PYANI_TPU_TORCH_DEVICE=cpu" not in proc.stderr:
+            raise AssertionError(f"anim ({tag}) refused without naming the variable: "
+                                 f"{proc.stderr[-500:]}")
+        if any(path.exists() and comparison_rows(path) for path in stored):
+            raise AssertionError(f"anim ({tag}) with no card stored comparisons")
+        print(f"   exit {proc.returncode}: {proc.stderr.strip().splitlines()[-1]}")
+        print(f"   refusal ({tag}) wall s: {seconds:.3f} ({smi})")
+        done(f"refusal {tag}", t0)
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1225,6 +1304,7 @@ def main() -> int:
         check_split_paths(torch, minhash, sw, runner, logger, work, paths[0].parent,
                           gram_scale, anim, anib, report.smi)
         check_graft_entry(torch, sw, report.smi)
+        check_device_choice(torch, ext, runner, logger, work, anim[1], report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")

@@ -1,4 +1,13 @@
-"""Build the JAX package's native libraries before any test file is collected.
+"""Ask the PyTorch port for the CPU, and build the JAX package's native
+libraries, before any test file is collected.
+
+The port runs every compute path on the card unless the caller asks for
+the CPU with ``PYANI_TPU_TORCH_DEVICE=cpu``; without a card and without
+that request it refuses. The tests compare the port with the JAX package
+on the CPU, so the session asks for the CPU here, once, for every test and
+every subprocess it starts (a caller's own choice is kept). A test that
+needs the card asks for it with
+``monkeypatch.setenv("PYANI_TPU_TORCH_DEVICE", "cuda")``.
 
 The loaders of ``pyani_plus_tpu/native`` build ``lib*.so`` in place at
 first use and give up for the whole process after one failed load. Under
@@ -16,6 +25,7 @@ and the loaders behave as they always did.
 from __future__ import annotations
 
 import fcntl
+import os
 import shutil
 import subprocess
 import tempfile
@@ -41,4 +51,5 @@ def _build_native_libraries() -> None:
             list(pool.map(build, sources))
 
 
+os.environ.setdefault("PYANI_TPU_TORCH_DEVICE", "cpu")
 _build_native_libraries()

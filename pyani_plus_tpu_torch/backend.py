@@ -1,9 +1,16 @@
-"""Explicit device probe: CUDA, compute capability, nvcc and the card.
+"""The port's device: the caller's choice, and a probe of the card.
 
 Replaces the JAX package's backend checks on the ported path
-(``extend_pallas._is_tpu_backend`` and the CLI's platform override). The
-report is taken once per process and logged once, so every run's log
-says which device and compiler the kernels met.
+(``extend_pallas._is_tpu_backend`` and the CLI's ``JAX_PLATFORMS``
+override). Every compute path of the port runs on the card unless the
+caller asks for the CPU with ``PYANI_TPU_TORCH_DEVICE=cpu``: the variable
+is read here, when a device is needed, and nowhere else. With the card
+requested (``cuda``, the default) and none found, or one that is not
+sm_90, resolving the device raises; nothing carries on on the CPU alone.
+
+:func:`probe` is a report, taken once per process and logged once, so
+every run's log says which device and compiler the kernels met. It
+decides nothing.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import torch
 
 # The kernels are built for sm_90a: Hopper only.
 KERNEL_CAPABILITY = (9, 0)
+# The caller's device choice: "cuda" (the default) or "cpu"
+ENV_DEVICE = "PYANI_TPU_TORCH_DEVICE"
+DEVICE_CHOICES = ("cuda", "cpu")
 
 
 @dataclass(frozen=True)
@@ -109,8 +119,71 @@ def probe() -> DeviceReport:
     return report
 
 
-def kernel_device() -> torch.device:
-    """Where the batched kernels run: the current card when CUDA is
-    present, the CPU otherwise. A worker of a process group has made its
-    own card current (``parallel/distributed.maybe_initialize``)."""
-    return torch.device("cuda", torch.cuda.current_device()) if probe().cuda else torch.device("cpu")
+def requested_device() -> str:
+    """The caller's choice, read now: ``cuda`` when the variable is unset,
+    or ``cpu``. Any other value raises."""
+    value = os.environ.get(ENV_DEVICE, "cuda")
+    if value not in DEVICE_CHOICES:
+        msg = f"{ENV_DEVICE}={value!r}: expected 'cuda' (the default) or 'cpu'"
+        raise ValueError(msg)
+    return value
+
+
+def cards() -> list[torch.device]:
+    """This process's cards when the card is requested, else none. Never
+    raises: a path that needs a card resolves it with :func:`kernel_device`."""
+    if requested_device() == "cpu" or not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def check_capability(device: torch.device, what: str = "pyani_plus_tpu_torch") -> None:
+    """Raise unless the card is one the sm_90a kernels run on."""
+    capability = tuple(torch.cuda.get_device_capability(device))
+    if capability != KERNEL_CAPABILITY:
+        msg = (
+            f"{what}: the kernels are built for sm_90a; this device is "
+            f"{torch.cuda.get_device_name(device)} with capability {capability}"
+        )
+        raise RuntimeError(msg)
+
+
+def _no_card(alternative: str) -> RuntimeError:
+    return RuntimeError(
+        f"no CUDA device was found; {alternative}set {ENV_DEVICE}=cpu to run on the CPU"
+    )
+
+
+def kernel_devices(alternative: str = "") -> list[torch.device]:
+    """Every device the kernels may run on in this process: the CPU when
+    it is requested, else every card, each checked. ``alternative`` is
+    put in the refusal before the variable (another way out, such as an
+    argument that names the devices)."""
+    if requested_device() == "cpu":
+        return [torch.device("cpu")]
+    found = cards()
+    if not found:
+        raise _no_card(alternative)
+    for card in found:
+        check_capability(card)
+    return found
+
+
+def kernel_device(alternative: str = "") -> torch.device:
+    """Where the batched kernels run: the CPU when it is requested, else
+    the current card, checked. A worker of a process group has made its
+    own card current (``parallel/distributed.maybe_initialize``). Raises
+    when the card is requested and there is none."""
+    if requested_device() == "cpu":
+        return torch.device("cpu")
+    if not cards():
+        raise _no_card(alternative)
+    device = torch.device("cuda", torch.cuda.current_device())
+    check_capability(device)
+    return device
+
+
+def on_card() -> bool:
+    """True when the work goes to the card; False when the CPU is
+    requested. Raises when the card is requested and absent."""
+    return kernel_device().type == "cuda"

@@ -11,6 +11,10 @@ Flags and output match ``pyani-plus-tpu``, so a run of either package
 can be listed, exported, classified, plotted or resumed by the other.
 ``launch -n N -- <command>`` runs any of them as a ``torch.distributed``
 process group of N workers on this node.
+
+The four methods with work for the card run on it, or refuse without it;
+``PYANI_TPU_TORCH_DEVICE=cpu`` asks for the CPU (``backend.py``), as
+``JAX_PLATFORMS=cpu`` does for the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -25,10 +29,12 @@ import click
 from pyani_plus_tpu_torch import (
     GRAPHICS_FORMATS,
     __version__,
+    backend,
     log_sys_exit,
     setup_logger,
 )
 from pyani_plus_tpu_torch.db import Database
+from pyani_plus_tpu_torch.methods import CARD_METHODS
 from pyani_plus_tpu_torch.parallel import resume_run, start_and_run_method
 from pyani_plus_tpu_torch.utils import check_db
 
@@ -98,18 +104,34 @@ def common_run_options(f):
     return f
 
 
+# The commands of CARD_METHODS: anim, dnadiff, anib, sourmash
+_CARD_COMMANDS = frozenset(name.lower() for name in CARD_METHODS)
+
+
 @click.group()
 @click.version_option(version=__version__)
-def app() -> None:
+@click.pass_context
+def app(ctx: click.Context) -> None:
     """pyANI-plus-TPU on PyTorch/CUDA: whole-genome ANI with H100 kernels."""
     # Join the process group as early as possible when launched as one; a
-    # group that cannot form fails the worker here.
-    if os.environ.get("PYANI_TPU_COORDINATOR") or os.environ.get(
-        "PYANI_TPU_AUTO_DISTRIBUTED"
-    ):
-        from pyani_plus_tpu_torch.parallel.distributed import maybe_initialize
+    # group that cannot form fails the worker here. A method with work for
+    # the card resolves its device first, so that a worker without its
+    # card fails before it joins and leaves no peer waiting for it in a
+    # collective. `resume` learns its method from the store: the runner
+    # resolves the device and then joins.
+    if not (
+        os.environ.get("PYANI_TPU_COORDINATOR")
+        or os.environ.get("PYANI_TPU_AUTO_DISTRIBUTED")
+    ) or ctx.invoked_subcommand == "resume":
+        return
+    if ctx.invoked_subcommand in _CARD_COMMANDS:
+        try:
+            backend.kernel_device()
+        except (RuntimeError, ValueError) as err:
+            sys.exit(f"{ctx.invoked_subcommand}: {err}")
+    from pyani_plus_tpu_torch.parallel.distributed import maybe_initialize
 
-        maybe_initialize()
+    maybe_initialize()
 
 
 def _run_method(  # noqa: PLR0913

@@ -13,10 +13,12 @@ Port of the JAX package's ``__graft_entry__.py``:
   run through the runner with the mesh as the production mesh.
 
 Where the JAX package takes its devices from ``jax.devices()`` (the
-virtual device count on the CPU), the caller names them here: every CUDA
-device of the process by default, or a list in which a device may stand
-several times (the CPU, or one card named four times for a 2 x 2 mesh).
-Nothing falls back to the CPU: without CUDA the caller names it.
+virtual device count on the CPU), the caller names them here: by default
+``backend.kernel_devices()`` (every card of the process, or the CPU when
+``PYANI_TPU_TORCH_DEVICE=cpu`` asks for it), or a list in which a device
+may stand several times (the CPU, or one card named four times for a 2 x 2
+mesh). Nothing falls back to the CPU: without a card the caller names it
+or asks for it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pyani_plus_tpu_torch import backend
 from pyani_plus_tpu_torch.db import Database
 from pyani_plus_tpu_torch.ops import sw
 from pyani_plus_tpu_torch.ops.minhash import Sketch, containment_ani
@@ -61,13 +64,11 @@ def containment_gram_step(
 def entry(device=None):
     """(fn, example_args): the Gram step and zero arguments of the JAX
     shapes, a (128, 128) float32 tile and two (128, 512) int8 blocks, on
-    ``device`` (default: the current card; without CUDA the caller names
-    the CPU)."""
+    ``device`` (default: ``backend.kernel_device()``, the current card;
+    without a card the caller names the CPU, with ``device='cpu'`` or
+    ``PYANI_TPU_TORCH_DEVICE=cpu``)."""
     if device is None:
-        if not torch.cuda.is_available():
-            msg = "no CUDA device: ask for the CPU with device='cpu'"
-            raise RuntimeError(msg)
-        device = torch.device("cuda", torch.cuda.current_device())
+        device = backend.kernel_device("pass device='cpu' or ")
     example_args = (
         torch.zeros((GRAM_ROWS, GRAM_ROWS), dtype=torch.float32, device=device),
         torch.zeros((GRAM_ROWS, GRAM_BLOCK), dtype=torch.int8, device=device),
@@ -77,8 +78,8 @@ def entry(device=None):
 
 
 def dryrun_mesh(n_devices: int, devices=None) -> tiles.Mesh:
-    """The mesh of the first ``n_devices`` of ``devices`` (default: every
-    CUDA device of this process); raises when there are fewer."""
+    """The mesh of the first ``n_devices`` of ``devices`` (default:
+    ``tiles.make_mesh``'s); raises when there are fewer."""
     mesh = tiles.make_mesh(n_devices, devices=devices)
     if mesh.size < n_devices:
         msg = (
@@ -189,15 +190,19 @@ def runner_step(mesh: tiles.Mesh, fasta_dir: Path, dbfile: Path) -> tuple[int, i
     on ``mesh`` as the production mesh, split between two simulated hosts
     (``PYANI_TPU_PROCESS_COUNT=2``): host 0 runs first and stores its
     share, then host 1 resumes the run, computes the rest and finalises
-    it. Returns (host 0's comparisons, all comparisons).
+    it. Returns (host 0's comparisons, all comparisons). A mesh of the
+    CPU asks for the CPU (``PYANI_TPU_TORCH_DEVICE=cpu``) for the run, a
+    mesh of cards for the card.
 
     The JAX dry run also sets ``PYANI_TPU_ANIB_BATCH`` and ``DEVICE_BATCH``
     to keep its padded batches small on the CPU; the port pads no batch
     and has neither.
     """
     logger = logging.getLogger("dryrun")
+    on_cpu = all(d.type == "cpu" for d in mesh.devices.flat)
     env = {"PYANI_TPU_ANIB_DEVICE": "1", "PYANI_TPU_PROCESS_COUNT": "2",
-           "PYANI_TPU_PROCESS_INDEX": "0"}  # fmt: skip
+           "PYANI_TPU_PROCESS_INDEX": "0",
+           backend.ENV_DEVICE: "cpu" if on_cpu else "cuda"}  # fmt: skip
     with _environment(env), tiles.pair_mesh(mesh):
         run_id = runner.start_and_run_method(logger, dbfile, fasta_dir, "ANIb", create_db=True)
         with Database(dbfile, logger=logger) as db:
@@ -218,7 +223,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     """Run the production paths once over an ``n_devices`` mesh (tiny
     shapes) and print the JAX dry run's closing line.
 
-    ``devices`` defaults to every CUDA device of this process; give
+    ``devices`` defaults to ``tiles.make_mesh``'s (every card of this
+    process, or the CPU when it is requested); give
     ``[torch.device("cpu")] * n`` for the CPU, or one card several times.
     Returns the line's numbers and, per step, the Smith-Waterman kernel's
     launches (0 on the CPU).

@@ -17,7 +17,7 @@ from typing import Any, Callable
 
 from pyani_plus_tpu_torch.genomes import Genome
 
-__all__ = ["ComputeContext", "get_method", "method_names", "run_pairwise"]
+__all__ = ["CARD_METHODS", "ComputeContext", "get_method", "method_names", "run_pairwise"]
 
 FLUSH_WINDOW = 300.0  # seconds between incremental flushes (ref JSON_WINDOW)
 
@@ -73,6 +73,12 @@ _MODULES = {
     "skani": "skani",
     "external-alignment": "external_alignment",
 }
+
+
+# The methods with work for the card; they resolve the device
+# (``backend.kernel_device``) before any work. The others run on the host,
+# as in the JAX package, and need no device.
+CARD_METHODS = frozenset({"ANIm", "dnadiff", "ANIb", "sourmash"})
 
 
 def method_names() -> list[str]:

@@ -20,8 +20,9 @@ and the accept rules are numpy and C++ on the host, as in the JAX
 package. What reached JAX there is the port's own: the choice of scorer
 (``use_device``), the batched device scoring (``_score_device_submit`` /
 ``_score_device_collect``) and the call chain around them. Device
-scoring goes to the CUDA kernel (``ops/sw.py``) when CUDA is present and
-to the plain PyTorch version on a CPU-only host; both return the score
+scoring goes to the CUDA kernel (``ops/sw.py``) on the card and to the
+plain PyTorch version when the CPU is requested
+(``PYANI_TPU_TORCH_DEVICE=cpu``); both return the score
 and the winning cell exactly, so the rows are the JAX package's rows.
 
 Against the JAX package's device path: one launch per pooled group (one
@@ -372,13 +373,14 @@ def _score_host(pairs: list[tuple[np.ndarray, np.ndarray]]) -> list[int]:
 
 
 def use_device() -> bool:
-    """Batched device scoring: on when CUDA is present. The JAX package's
-    ``PYANI_TPU_ANIB_DEVICE`` overrides it with the same meaning; ``1``
-    on a CPU-only host runs the plain PyTorch version."""
+    """Batched device scoring: on when the work goes to the card
+    (``backend.on_card``). The JAX package's ``PYANI_TPU_ANIB_DEVICE``
+    overrides it with the same meaning; ``1`` with the CPU requested runs
+    the plain PyTorch version, and without the card it raises."""
     flag = os.environ.get("PYANI_TPU_ANIB_DEVICE")
     if flag in ("0", "1"):
         return flag == "1"
-    return backend.probe().cuda
+    return backend.on_card()
 
 
 def _score_device_submit(pairs: list[Pair]):

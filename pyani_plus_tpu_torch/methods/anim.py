@@ -19,9 +19,10 @@ Port of ``pyani_plus_tpu/methods/anim.py`` (nucmer ``--mum`` +
 Every stage but one is numpy and C++ on the host, as in the JAX package.
 The call chain that reached the Pallas kernel there, ``align_sequences``
 -> ``_run_extensions`` -> the batched free-end extensions, goes to the
-CUDA kernel (``ops/extend.py``) when CUDA is present and the batch holds
-at least ``EXT_BATCH_MIN_CUDA`` tasks, and to the native host kernel
-otherwise. Both are exact to the integer, so the rows are the JAX
+CUDA kernel (``ops/extend.py``) when the work goes to the card and the
+batch holds at least ``EXT_BATCH_MIN_CUDA`` tasks, and to the native host
+kernel otherwise (the CPU requested with ``PYANI_TPU_TORCH_DEVICE=cpu``,
+or a batch below ``PYANI_TPU_EXTEND_BATCH_MIN``). Both are exact to the integer, so the rows are the JAX
 package's rows.
 """
 
@@ -160,18 +161,20 @@ def _chain_and_fill(
 
 EXT_BAND = 60  # extend_errors' band; the kernel's lanes share it
 EXT_BREAKLEN = 200
-# Smallest batch that goes to the CUDA extension kernel when a card is
-# present. On the H100 the wrapper (pack, one copy, launch, copy back,
-# event) beat the native host kernel, run as _run_extensions runs it,
-# at every batch size from one task up, for tails of 150-700 rows and
-# for ANIm's long tails alike (chip_smoke.py's sweep; PERF.md has the
-# measurements), so every full-band task goes to the card. Without CUDA
-# the native host kernel runs (EXT_BATCH_MIN).
+# Smallest batch that goes to the CUDA extension kernel when the work
+# goes to the card (backend.on_card). On the H100 the wrapper (pack, one
+# copy, launch, copy back, event) beat the native host kernel, run as
+# _run_extensions runs it, at every batch size from one task up, for
+# tails of 150-700 rows and for ANIm's long tails alike (chip_smoke.py's
+# sweep; PERF.md has the measurements), so every full-band task goes to
+# the card. With the CPU
+# requested (PYANI_TPU_TORCH_DEVICE=cpu) the native host kernel runs
+# (EXT_BATCH_MIN).
 # PYANI_TPU_EXTEND_BATCH_MIN overrides either, with the JAX package's
-# meaning (small values force the batched path, which on a CPU-only
-# host is the plain PyTorch version).
+# meaning (small values force the batched path, which on the requested
+# CPU is the plain PyTorch version, and without the card it raises).
 EXT_BATCH_MIN_CUDA = 1
-EXT_BATCH_MIN = 1 << 30  # no card: host kernel
+EXT_BATCH_MIN = 1 << 30  # the CPU: host kernel
 
 if EXT_BAND != BAND:  # pragma: no cover - the kernel's layout fixes the band
     msg = f"the extension kernel is laid out for band {BAND}, ANIm uses {EXT_BAND}"
@@ -179,7 +182,7 @@ if EXT_BAND != BAND:  # pragma: no cover - the kernel's layout fixes the band
 
 
 def _default_ext_batch_min() -> int:
-    return EXT_BATCH_MIN_CUDA if backend.probe().cuda else EXT_BATCH_MIN
+    return EXT_BATCH_MIN_CUDA if backend.on_card() else EXT_BATCH_MIN
 
 
 def _extension_tasks(
@@ -206,8 +209,8 @@ def _extension_tasks(
 def _run_extensions(
     tasks: list[tuple[np.ndarray, np.ndarray]],
 ) -> list[tuple[int, int, int, int, int]]:
-    """Batch free-end extensions: the CUDA kernel when CUDA is present and
-    the batch is large, per-task native kernel otherwise. Exact either way.
+    """Batch free-end extensions: the CUDA kernel when the work goes to the
+    card and the batch is large, per-task native kernel otherwise. Exact either way.
 
     The batch is submitted first and collected last, so the tasks that
     stay on the host (empty or shorter than the band) run while the card

@@ -68,11 +68,5 @@ def check_packed(kernel: str, packed: tuple[torch.Tensor, ...]) -> int:
     if not (n.numel() == a_off.numel() == b_off.numel() == nb):
         msg = f"{kernel}: m, n and the offsets differ in length"
         raise ValueError(msg)
-    report = backend.probe()
-    if not report.kernels_supported:
-        msg = (
-            f"{kernel}: the kernels are built for sm_90a; this device is "
-            f"{report.device_name} with capability {report.capability}"
-        )
-        raise RuntimeError(msg)
+    backend.check_capability(device, kernel)
     return nb

@@ -28,9 +28,10 @@ constants are that module's host half, kept as it is there.
   ``max_hash`` filter, with every survivor brought back (no transfer cap
   and no host route for a full chunk).
 
-On a CUDA host both run on the card or raise; on a CPU-only host they run
-the same PyTorch code on the CPU, as the JAX package runs its XLA code on
-the CPU. Nothing falls back from one to the other.
+Both run on the card or raise; with the CPU requested
+(``PYANI_TPU_TORCH_DEVICE=cpu``) they run the same PyTorch code on the
+CPU, as the JAX package runs its XLA code on the CPU. Nothing falls back
+from one to the other.
 """
 
 from __future__ import annotations
@@ -261,8 +262,8 @@ def intersection_matrix_device(
 
     ``mesh="auto"`` splits the counts over ``default_pair_mesh()`` (every
     card of a process that has several); ``mesh=None``, or a ``device``,
-    keeps them on one device (default: this process's card when CUDA is
-    present).
+    keeps them on one device (default: ``backend.kernel_device()``, this
+    process's card unless the CPU is requested).
     """
     global LAUNCHES
     from pyani_plus_tpu_torch.parallel.tiles import default_pair_mesh, make_mesh

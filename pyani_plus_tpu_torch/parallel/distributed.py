@@ -22,7 +22,8 @@ one-card machine puts both workers on it). The cards are not shared
 through the group: once it has joined, each process makes card
 ``local_rank % device_count`` of its node current, so its kernels, streams,
 events and allocations all land there (``backend.kernel_device`` returns
-the current card).
+the current card). With the CPU requested (``PYANI_TPU_TORCH_DEVICE=cpu``)
+a worker touches no card.
 
 Rows are encoded losslessly as the JAX package encodes them: MD5 hashes
 as 4 uint32 words each, float fields (including the integer-valued ones,
@@ -46,6 +47,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from pyani_plus_tpu_torch import backend
 
 ENV_COORDINATOR = "PYANI_TPU_COORDINATOR"
 ENV_NUM_PROCESSES = "PYANI_TPU_NUM_PROCESSES"
@@ -163,10 +166,11 @@ def maybe_initialize(logger: logging.Logger | None = None) -> tuple[int, int]:
     # active exception"), which a loaded CPU host showed in 13 of 240
     # two-process runs of the collectives, and in none of 240 with this.
     atexit.register(dist.destroy_process_group)
-    if torch.cuda.is_available():
+    cards = backend.cards()  # none when the CPU is requested: CUDA untouched
+    if cards:
         # the workers of a node spread over its cards, and share them when
         # there are more workers than cards
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        torch.cuda.set_device(local % len(cards))
     if logger is not None:
         logger.info(
             "%s: process %d of %d (local rank %d, coordinator %s)",

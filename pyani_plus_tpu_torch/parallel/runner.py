@@ -28,7 +28,7 @@ import torch
 from pyani_plus_tpu_torch import __version__, backend, log_sys_exit
 from pyani_plus_tpu_torch.db import Database, Run
 from pyani_plus_tpu_torch.genomes import Genome, load_genome
-from pyani_plus_tpu_torch.methods import ComputeContext, get_method
+from pyani_plus_tpu_torch.methods import CARD_METHODS, ComputeContext, get_method
 from pyani_plus_tpu_torch.parallel import distributed
 from pyani_plus_tpu_torch.parallel.tiles import owned_pairs
 from pyani_plus_tpu_torch.utils import check_fasta, file_md5sum
@@ -66,6 +66,7 @@ def start_and_run_method(  # noqa: PLR0913
 ) -> int:
     """Full run of one ported method over a FASTA directory; returns run_id."""
     method = get_method(method_name)
+    require_device(logger, method_name)  # before anything is stored
     config = method.configuration(**params)
     # Ingest problems surface as one CRITICAL line and a clean exit.
     try:
@@ -94,6 +95,21 @@ def start_and_run_method(  # noqa: PLR0913
         )
     finally:
         db.close()
+
+
+def require_device(logger: logging.Logger, method_name: str) -> None:
+    """Resolve the device of a method with work for the card
+    (``methods.CARD_METHODS``), at any input size: the card, or the CPU
+    when ``PYANI_TPU_TORCH_DEVICE=cpu`` asks for it. A refusal (no card, a
+    card the kernels do not run on, a bad value) exits with its message.
+    The host-only methods need no device."""
+    if method_name not in CARD_METHODS:
+        return
+    try:
+        device = backend.kernel_device()
+    except (RuntimeError, ValueError) as err:
+        log_sys_exit(logger, f"{method_name}: {err}")
+    logger.info("%s runs on %s", method_name, device)
 
 
 def _setup_run(  # noqa: PLR0913
@@ -192,7 +208,7 @@ def _compute(logger: logging.Logger, method: Any, ctx: ComputeContext) -> list[d
     if not profile_dir:
         return method.compute(ctx)
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if backend.probe().cuda:
+    if backend.cards():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         rows = method.compute(ctx)
@@ -243,6 +259,9 @@ def resume_run(  # noqa: PLR0913, C901
             h: Path(run.fasta_directory) / f for h, f in run.hash_to_filename.items()
         }
     backend.probe()
+    # A worker that cannot have its device fails here, before it joins the
+    # group: no peer is left waiting for it in a collective.
+    require_device(logger, config_obj.method)
 
     # Join the process group when launched as one (the `launch` command or
     # a cluster launcher sets the coordinator env).

@@ -28,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pyani_plus_tpu_torch import backend
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -51,14 +53,14 @@ def make_mesh(
     axis_names: tuple[str, str] = ("q", "s"),
     devices: list | None = None,
 ) -> Mesh:
-    """Build a 2D mesh over ``devices`` (default: this process's CUDA
-    devices; without CUDA the caller names the CPU), q-major, as square
-    as possible."""
+    """Build a 2D mesh over ``devices`` (default: ``backend.kernel_devices``,
+    this process's cards, or the CPU when ``PYANI_TPU_TORCH_DEVICE=cpu``
+    asks for it; without a card the caller names the devices or asks for
+    the CPU), q-major, as square as possible."""
     if devices is None:
-        if not torch.cuda.is_available():
-            msg = "no CUDA device: name the mesh's devices (devices=[torch.device('cpu')] * n)"
-            raise RuntimeError(msg)
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = backend.kernel_devices(
+            "name the mesh's devices (devices=[torch.device('cpu')] * n) or "
+        )
     devices = [torch.device(d) for d in devices]
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -101,8 +103,8 @@ def pair_mesh(mesh: Mesh):
 
 def default_pair_mesh() -> Mesh | None:
     """The production pair-grid mesh: the one :func:`pair_mesh` set, else
-    every CUDA device of this process when there are two or more, else
-    None.
+    every card of this process when there are two or more, else None
+    (also when the CPU is requested: ``backend.cards``).
 
     A multi-card process automatically splits the pair-grid work (the
     sourmash containment Gram, ANIb's batched Smith-Waterman) over this
@@ -118,9 +120,9 @@ def default_pair_mesh() -> Mesh | None:
         return None
     if distributed.is_initialized() and torch.distributed.get_world_size() > 1:
         return None
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+    devices = tuple(backend.cards())
+    if len(devices) < 2:
         return None
-    devices = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
     mesh = _DEFAULT_MESH_CACHE.get(devices)
     if mesh is None:
         mesh = make_mesh(devices=list(devices))

@@ -174,7 +174,9 @@ def test_use_device_follows_env_and_backend(monkeypatch) -> None:
     monkeypatch.setenv("PYANI_TPU_ANIB_DEVICE", "0")
     assert not anib.use_device()
     monkeypatch.delenv("PYANI_TPU_ANIB_DEVICE")
-    assert anib.use_device() == backend.probe().cuda
+    assert anib.use_device() is backend.on_card()
+    monkeypatch.setenv(backend.ENV_DEVICE, "cpu")
+    assert not anib.use_device()
 
 
 def test_registry_and_configuration() -> None:

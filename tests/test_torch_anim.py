@@ -160,9 +160,11 @@ def test_run_extensions_matches_jax_host_path(batched, monkeypatch) -> None:
 
 def test_default_batch_threshold_follows_backend(monkeypatch) -> None:
     monkeypatch.delenv("PYANI_TPU_EXTEND_BATCH_MIN", raising=False)
-    expected = anim.EXT_BATCH_MIN_CUDA if backend.probe().cuda else anim.EXT_BATCH_MIN
+    expected = anim.EXT_BATCH_MIN_CUDA if backend.on_card() else anim.EXT_BATCH_MIN
     assert anim._default_ext_batch_min() == expected
-    assert backend.kernel_device().type == ("cuda" if backend.probe().cuda else "cpu")
+    assert backend.kernel_device().type == ("cuda" if backend.on_card() else "cpu")
+    monkeypatch.setenv(backend.ENV_DEVICE, "cpu")
+    assert anim._default_ext_batch_min() == anim.EXT_BATCH_MIN
 
 
 def test_registry_and_configuration() -> None:

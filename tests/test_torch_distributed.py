@@ -132,10 +132,11 @@ def fresh_group(monkeypatch) -> list[dict]:
     """No group joined; ``init_process_group`` records its arguments
     instead of joining, and rank and size read from them. Four cards are
     faked (none is touched): the card a worker makes current is recorded
-    as the call's "card"."""
+    as the call's "card". The card is requested."""
     calls: list[dict] = []
     current = [0]
     monkeypatch.setattr(distributed, "_initialized", False)
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
@@ -269,13 +270,10 @@ def test_a_group_that_cannot_form_raises(fresh_group, monkeypatch) -> None:
 def test_kernel_device_takes_the_local_ranks_card(fresh_group, monkeypatch, rank: int,
                                                   count: int, expected: str) -> None:  # fmt: skip
     """A worker joining a group makes card ``local rank % cards`` current,
-    and the kernels run on the current card."""
-    report = backend.DeviceReport(
-        cuda=count > 0, capability=(9, 0) if count else None, device_name=None,
-        device_count=count, torch_version="", torch_cuda=None, nvcc=None,
-        nvcc_version=None, smi=None,
-    )  # fmt: skip
-    monkeypatch.setattr(backend, "probe", lambda: report)
+    and the kernels run on the current card; with no card the CPU is
+    asked for, and the kernels run there."""
+    monkeypatch.setenv(backend.ENV_DEVICE, "cpu" if expected == "cpu" else "cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device: (9, 0))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: count > 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
     monkeypatch.setenv(distributed.ENV_COORDINATOR, "127.0.0.1:29517")

@@ -43,6 +43,7 @@ import pyani_plus_tpu.ops.minhash as jax_minhash
 import pyani_plus_tpu.parallel.runner as jax_runner
 import pyani_plus_tpu.parallel.tiles as jax_tiles
 from pyani_plus_tpu.ops.dp_jax import batch_local_align_scores
+from pyani_plus_tpu_torch import backend
 from pyani_plus_tpu_torch import db as port_db
 from pyani_plus_tpu_torch import graft_entry
 from pyani_plus_tpu_torch.ops import sw
@@ -82,6 +83,7 @@ def test_entry_is_the_jax_entry() -> None:
 
 
 def test_entry_without_cuda_needs_the_cpu_named(monkeypatch) -> None:
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         graft_entry.entry()
@@ -229,8 +231,9 @@ def test_dryrun_line_at_8_is_the_jax_dryruns(capsys, monkeypatch) -> None:
 def test_too_few_devices_or_no_cuda_raise(monkeypatch) -> None:
     with pytest.raises(RuntimeError, match=r"needs 4 devices but only 3 .*devices="):
         graft_entry.dryrun_multichip(4, devices=_cpus(3))
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match=r"no CUDA device: .*devices=\[torch.device\('cpu'\)\]"):
+    with pytest.raises(RuntimeError, match=r"no CUDA device was found; .*devices=\[torch.device\('cpu'\)\]"):
         graft_entry.dryrun_multichip(2)
 
 
@@ -256,9 +259,10 @@ def test_pair_mesh_restores_the_production_mesh(monkeypatch) -> None:
 
 
 @pytest.mark.gpu
-def test_dryrun_over_one_card_named_four_times(capsys) -> None:
+def test_dryrun_over_one_card_named_four_times(capsys, monkeypatch) -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     card = torch.device("cuda", 0)
     fn, args = graft_entry.entry()
     assert all(a.device == card for a in args)

@@ -27,7 +27,7 @@ import pyani_plus_tpu.methods.sourmash as jax_sourmash
 import pyani_plus_tpu.ops.minhash as jax_minhash
 from pyani_plus_tpu.genomes import Genome, SequenceRecord, load_genome
 from pyani_plus_tpu.ops.minhash import Sketch, intersection_matrix_host, sketch_genome
-from pyani_plus_tpu_torch import methods
+from pyani_plus_tpu_torch import backend, methods
 from pyani_plus_tpu_torch.methods import sourmash
 from pyani_plus_tpu_torch.ops import minhash
 from pyani_plus_tpu_torch.synthetic import clade_sketches, gram_fuzz_sets, write_clade_dir
@@ -217,9 +217,10 @@ def test_clade_dir_and_sourmash_rows_match_jax(monkeypatch, tmp_path) -> None:
 
 
 @pytest.mark.gpu
-def test_gram_and_sketch_on_the_card() -> None:
+def test_gram_and_sketch_on_the_card(monkeypatch) -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     for name, sketches in gram_fuzz_sets(seed=4, n=70).items():
         before = minhash.LAUNCHES
         got = minhash.intersection_matrix_device(sketches)

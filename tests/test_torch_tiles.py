@@ -76,9 +76,11 @@ def test_make_mesh_shape_and_order_are_the_jax_packages(n: int) -> None:
 
 
 def test_make_mesh_without_cuda_needs_the_devices_named(monkeypatch) -> None:
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for n in (None, 1, 2):
-        with pytest.raises(RuntimeError, match="no CUDA device: name the mesh's devices"):
+        with pytest.raises(RuntimeError, match=r"no CUDA device was found; name the mesh's "
+                                               r"devices .* or set PYANI_TPU_TORCH_DEVICE=cpu"):
             tiles.make_mesh(n)
     mesh = tiles.make_mesh(2, devices=_cpus(4))
     assert mesh.shape == (1, 2) and all(d.type == "cpu" for d in mesh.devices.flat)
@@ -184,6 +186,7 @@ def cards(monkeypatch):
     devices) and no process group; returns the setter."""
     monkeypatch.setattr(distributed, "_initialized", False)
     monkeypatch.delenv("PYANI_TPU_MESH", raising=False)
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     monkeypatch.setattr(tiles, "_DEFAULT_MESH_CACHE", {})
 
     def set_count(count: int) -> None:
@@ -299,6 +302,7 @@ def test_local_rank_one_on_a_one_card_machine_runs_on_card_0(monkeypatch) -> Non
         pytest.skip("needs a CUDA device")
     if torch.cuda.device_count() != 1:
         pytest.skip("needs a machine with one card")
+    monkeypatch.setenv(backend.ENV_DEVICE, "cuda")
     # worker 1 of a `launch -n 2` group, its join faked
     monkeypatch.setattr(distributed, "_initialized", False)
     monkeypatch.setattr(torch.distributed, "init_process_group", lambda *args, **kwargs: None)
