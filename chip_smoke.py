@@ -72,7 +72,18 @@ of which raises on failure (so the exit code is not 0):
     requested, the CLI's ``anim`` refuses in a subprocess, alone and under
     ``launch -n 2``, within 60 s, its message naming the variable, and
     stores no comparison;
-12. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+12. interrupt and resume on the card, for ANIm and then ANIb: 8 genomes
+    of 200 kb from one ancestor at 1-5% substitutions (64 ordered pairs;
+    an uninterrupted CLI run lasts over 20 s) run once through the runner
+    in this process for the reference rows; then the CLI in a subprocess,
+    in an environment built without the device request and with every
+    card visible, gets SIGINT 5 s after its store says Running and its
+    log names the card, and must exit within 60 s with code 0 (the JAX
+    CLI's), no traceback or CUDA error in its output, the run "Worker
+    interrupted" with some but not all rows, and its kernel launched on
+    cuda:0 (counted in the process); ``resume`` in a second subprocess
+    must reach Done with every row equal to the reference's;
+13. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -91,6 +102,7 @@ import json
 import logging
 import os
 import shutil
+import signal
 import sqlite3
 import subprocess
 import sys
@@ -985,9 +997,9 @@ def check_host_methods(kernels, _build, runner, logger, work: Path, alignment: P
         print(f"   {method}: {len(rows['all'])} rows; the share's 4 rows equal (ints exact, floats ==)")
 
 
-# The launch workers' interpreters refuse jax and the JAX package, and
-# each writes down at exit which of them it holds, how many times it
-# launched the extension kernel and which card was current.
+# The launch workers' interpreters (and phase 12's CLI processes) refuse
+# jax and the JAX package, and each writes down at exit which of them it
+# holds, how many times it launched each kernel and which card was current.
 WORKER_SITE_HOOK = """
 import atexit, json, os, sys
 FOREIGN = ("jax", "jaxlib", "pyani_plus_tpu")
@@ -1000,8 +1012,10 @@ sys.meta_path.insert(0, _Refuse())
 def _report():
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
     extend = sys.modules.get("pyani_plus_tpu_torch.ops.extend")
+    sw = sys.modules.get("pyani_plus_tpu_torch.ops.sw")
     backend = sys.modules.get("pyani_plus_tpu_torch.backend")
     report = {"foreign": loaded, "extend_launches": extend.LAUNCHES if extend else None,
+              "sw_launches": sw.LAUNCHES if sw else None,
               "device": str(backend.kernel_device()) if backend else None}
     with open(os.path.join(os.environ["SMOKE_WORKER_REPORTS"], str(os.getpid())), "w") as out:
         out.write(json.dumps(report))
@@ -1244,6 +1258,145 @@ def check_device_choice(torch, ext, runner, logger, work: Path, anim_rows: list[
         done(f"refusal {tag}", t0)
 
 
+# Phase 12: eight genomes of one ancestor at 1-5% substitutions, 64
+# ordered pairs. On an H100 at 250 kb an uninterrupted run through the
+# runner took 23.8 and 45.6 s (ANIm; the host's clock varies between
+# machines) and 15.2 and 18.2 s (ANIb), the CLI 9 s more to reach
+# Running, and 7-12 rows were stored in the 5 s before the signal; at
+# 500 kb ANIm took 48.7 s and stored one. At 200 kb ANIm took 17.5 s and
+# ANIb 14.4 s, with 10 and 20 rows stored before the signal, and the
+# phase 114 s.
+INTERRUPT_RATES = [0.01 + 0.04 * i / 7 for i in range(8)]
+INTERRUPT_LENGTH = 200_000
+INTERRUPT_DELAY = 5.0  # seconds from "Running" and the card in the log to SIGINT
+INTERRUPT_KERNEL = {"ANIm": ("B1", "extend_launches"), "ANIb": ("B2", "sw_launches")}
+FAULTS = ("Traceback", "CUDA error", "cudaError", "CUDA_ERROR", "illegal memory access",
+          "terminate called", "Segmentation fault", "core dumped")
+
+
+def run_status(db: Path) -> str | None:
+    try:
+        with sqlite3.connect(db) as conn:
+            row = conn.execute("SELECT status FROM runs").fetchone()
+    except sqlite3.OperationalError:  # not created yet
+        return None
+    return row[0] if row else None
+
+
+def cli_report(text: str, reports: Path, method: str, tag: str, code: int) -> dict:
+    """The checks both of phase 12's CLI processes share: exit code 0 (the
+    JAX CLI's after an interrupt too: its runner marks the run and
+    returns), no fault in the output, the card in the log, and the
+    process's own report (WORKER_SITE_HOOK): no foreign import, its kernel
+    launched on cuda:0. Returns the report."""
+    if code != 0:
+        raise AssertionError(f"{method} {tag} exited {code}: {text[-1500:]}")
+    faults = [fault for fault in FAULTS if fault in text]
+    if faults:
+        raise AssertionError(f"{method} {tag}: {faults} in its output: {text[-1500:]}")
+    if f"{method} runs on cuda:" not in text:
+        raise AssertionError(f"{method} {tag}: the log does not show the card")
+    [report] = [json.loads(path.read_text()) for path in reports.iterdir()]
+    launches = report[INTERRUPT_KERNEL[method][1]]
+    if report["foreign"] or report["device"] != "cuda:0" or not launches:
+        raise AssertionError(f"{method} {tag}: {report}")
+    return report
+
+
+def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> None:
+    """Phase 12: SIGINT to the port's CLI on the card, then ``resume``,
+    for ANIm (pair threads launching B1 on their own streams) and ANIb (up
+    to three B2 launches queued, side threads waiting on their events).
+    For each method: an uninterrupted run through the runner in this
+    process gives the reference rows; the CLI in a subprocess (an
+    environment built here: no device request, every card visible) is
+    sent SIGINT ``INTERRUPT_DELAY`` s after its store says Running and its
+    log names the card; it must exit 0 within 60 s, no fault in its output, the run "Worker interrupted" with some but not
+    all rows, and its kernel launched; ``resume`` in a second subprocess
+    must reach Done with every row equal to the reference's."""
+    from pyani_plus_tpu_torch.synthetic import write_genome_dir
+
+    hook = work / "interrupt_hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(WORKER_SITE_HOOK)
+    root = Path(__file__).resolve().parent
+    env = {key: value for key, value in os.environ.items()
+           if not key.startswith("PYANI_TPU") and key != "CUDA_VISIBLE_DEVICES"}  # fmt: skip
+    env["PYTHONPATH"] = os.pathsep.join([str(hook), str(root),
+                                         *filter(None, [os.environ.get("PYTHONPATH")])])
+    cli = [sys.executable, "-m", "pyani_plus_tpu_torch.cli.main"]
+    genomes = work / "interrupt_genomes"
+    write_genome_dir(genomes, INTERRUPT_LENGTH, INTERRUPT_RATES, SEED)
+    n_pairs = len(INTERRUPT_RATES) ** 2
+    for (method, command), kernel in zip((("ANIm", "anim"), ("ANIb", "anib")), kernels):
+        name, key = INTERRUPT_KERNEL[method]
+        reference, launches, seconds = run_method(kernel, runner, logger, work, genomes, method,
+                                                  f"{command}_uninterrupted", host_env=None)
+        if len(reference) != n_pairs or not launches:
+            raise AssertionError(f"{method} uninterrupted: {len(reference)} rows, "
+                                 f"{launches} launches")
+        print(f"   {method} uninterrupted: {len(INTERRUPT_RATES)} genomes of "
+              f"{INTERRUPT_LENGTH} bp, {n_pairs} rows in {seconds:.3f} s ({smi})")
+
+        db, log = work / f"{command}_interrupted.db", work / f"{command}_interrupted.log"
+        reports = work / f"{command}_interrupted_reports"
+        reports.mkdir()
+        t0 = phase(f"{method} CLI on the card, SIGINT {INTERRUPT_DELAY} s after Running")
+        with log.open("w") as out:
+            proc = subprocess.Popen(
+                [*cli, command, str(genomes), "-d", str(db), "--create-db"], cwd=root,
+                env={**env, "SMOKE_WORKER_REPORTS": str(reports)}, stdout=out,
+                stderr=subprocess.STDOUT,
+            )  # fmt: skip
+        try:
+            deadline = time.monotonic() + 120
+            while not (run_status(db) == "Running" and f"{method} runs on cuda:" in log.read_text()):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"{method} never ran on the card: {log.read_text()[-1500:]}")
+                time.sleep(0.05)
+            running = time.monotonic() - t0
+            time.sleep(INTERRUPT_DELAY)
+            if proc.poll() is not None:
+                raise AssertionError(f"{method} ended before the signal: make it longer")
+            signalled = time.monotonic()
+            proc.send_signal(signal.SIGINT)
+            code = proc.wait(timeout=60)
+            exit_seconds = time.monotonic() - signalled
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        report = cli_report(log.read_text(), reports, method, "interrupted", code)
+        status, partial = run_status(db), comparison_rows(db)
+        if status != "Worker interrupted" or not 0 < len(partial) < n_pairs:
+            raise AssertionError(f"{method} interrupted: status {status!r}, {len(partial)} rows")
+        if not set(partial) <= set(reference):
+            raise AssertionError(f"{method} interrupted: a stored row differs from the reference")
+        print(f"   {method}: Running and the card after {running:.3f} s; exit {code} "
+              f"{exit_seconds:.3f} s after SIGINT; status {status!r}; {len(partial)} of "
+              f"{n_pairs} rows stored; {name} launches in the process "
+              f"{report[key]} ({smi})")
+        done(f"{command} interrupted", t0)
+
+        reports = work / f"{command}_resumed_reports"
+        reports.mkdir()
+        t0 = phase(f"{method} resume on the card")
+        proc = subprocess.run(
+            [*cli, "resume", "-d", str(db)], cwd=root, capture_output=True, text=True,
+            env={**env, "SMOKE_WORKER_REPORTS": str(reports)}, timeout=600, check=False,
+        )  # fmt: skip
+        report = cli_report(proc.stdout + proc.stderr, reports, method, "resume",
+                            proc.returncode)
+        status, rows = run_status(db), comparison_rows(db)
+        if status != "Done" or rows != reference:
+            raise AssertionError(f"{method} resumed: status {status!r}, {len(rows)} rows, "
+                                 f"equal to the reference: {rows == reference}")
+        print(f"   {method} resumed: Done, {len(rows)} rows equal to the uninterrupted run's "
+              f"(ints exact, floats ==); {name} launches in the process "
+              f"{report[key]} ({smi})")
+        done(f"{command} resume", t0)
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1305,6 +1458,7 @@ def main() -> int:
                           gram_scale, anim, anib, report.smi)
         check_graft_entry(torch, sw, report.smi)
         check_device_choice(torch, ext, runner, logger, work, anim[1], report.smi)
+        check_interrupt_resume((ext, sw), runner, logger, work, report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")

@@ -89,10 +89,7 @@ def get_method(name: str) -> Any:
     try:
         modname = _MODULES[name]
     except KeyError:
-        msg = (
-            f"Method {name!r} is not ported to PyTorch; ported: "
-            f"{sorted(_MODULES)}"
-        )
+        msg = f"Unknown method {name!r}; known: {sorted(_MODULES)}"
         raise ValueError(msg) from None
     return importlib.import_module(f"pyani_plus_tpu_torch.methods.{modname}")
 

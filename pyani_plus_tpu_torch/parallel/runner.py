@@ -64,7 +64,7 @@ def start_and_run_method(  # noqa: PLR0913
     extra_files: dict[str, Path] | None = None,
     **params: Any,
 ) -> int:
-    """Full run of one ported method over a FASTA directory; returns run_id."""
+    """Full run of one method over a FASTA directory; returns run_id."""
     method = get_method(method_name)
     require_device(logger, method_name)  # before anything is stored
     config = method.configuration(**params)

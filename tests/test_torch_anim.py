@@ -171,7 +171,7 @@ def test_registry_and_configuration() -> None:
     assert methods.method_names() == jax_method_names()
     assert methods.get_method("ANIm") is anim
     assert methods.get_method("dnadiff") is dnadiff
-    with pytest.raises(ValueError, match="not ported.*ANIm"):
+    with pytest.raises(ValueError, match=r"^Unknown method 'no-such-method'; known: .*'ANIm'"):
         methods.get_method("no-such-method")
     assert anim.configuration() == jax_anim.configuration()
     assert anim.configuration(mode="maxmatch") == jax_anim.configuration(mode="maxmatch")

@@ -114,11 +114,12 @@ def test_resume_across_packages(
     assert after == before
 
 
-def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path) -> None:
+def test_port_cli_commands_and_unknown_method_resume(genome_dir: Path, tmp_path: Path) -> None:
     """The port has every command of the JAX package, ``launch`` included;
     the report, host-method and ``launch`` commands are its own copies with
-    the JAX package's options, and a run of a method it does not know (a
-    made-up name) cannot be resumed by it."""
+    the JAX package's options, and a run of a method that does not exist
+    (a made-up name) cannot be resumed: both CLIs refuse it with the same
+    message."""
     assert set(torch_app.commands) == set(jax_app.commands)
     assert "launch" in torch_app.commands
     for name in sorted(set(torch_app.commands) - {"anim", "dnadiff", "anib", "sourmash", "resume"}):
@@ -128,17 +129,21 @@ def test_port_cli_commands_and_unported_resume(genome_dir: Path, tmp_path: Path)
         assert [(o.name, o.opts, o.default) for o in mine.params] == [
             (o.name, o.opts, o.default) for o in theirs.params
         ], name
-    db = tmp_path / "skani.db"
-    _run_cli(jax_app, ["skani", str(genome_dir), "-d", str(db), "--create-db",
+    messages = {}
+    for tag, app in APPS.items():
+        db = tmp_path / f"skani_{tag}.db"
+        _run_cli(app, ["skani", str(genome_dir), "-d", str(db), "--create-db",
                        "--cache", str(tmp_path / "cache")])  # fmt: skip
-    with Database(db) as store:
-        store.execute_with_retries("UPDATE configurations SET method='no-such-method'")
-        assert store.load_run().configuration.method == "no-such-method"
-    with pytest.raises(ValueError, match="not ported"):
-        CliRunner().invoke(
-            torch_app, ["resume", "-d", str(db), "--cache", str(tmp_path / "cache")],
-            catch_exceptions=False,
-        )
+        with Database(db) as store:
+            store.execute_with_retries("UPDATE configurations SET method='no-such-method'")
+            assert store.load_run().configuration.method == "no-such-method"
+        with pytest.raises(ValueError, match=r"^Unknown method 'no-such-method'; known: ") as err:
+            CliRunner().invoke(
+                app, ["resume", "-d", str(db), "--cache", str(tmp_path / "cache")],
+                catch_exceptions=False,
+            )
+        messages[tag] = str(err.value)
+    assert messages["torch"] == messages["jax"]
 
 
 # Refuses any import of jax or of the JAX package, wherever it comes from.
