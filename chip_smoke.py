@@ -83,7 +83,17 @@ of which raises on failure (so the exit code is not 0):
     interrupted" with some but not all rows, and its kernel launched on
     cuda:0 (counted in the process); ``resume`` in a second subprocess
     must reach Done with every row equal to the reference's;
-13. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+13. the port's headline benchmark, ``python -m pyani_plus_tpu_torch.bench``,
+    in a subprocess on the card at bench.py's default widths (1,000
+    genomes of 100 kb for sourmash, a 400 kb pair and a column of 12
+    queries for ANIm, dnadiff and ANIb, 512 extension tasks, ``launch -n
+    K`` over 12 genomes of 20 kb for K = 1, 2, 4), its imports and its
+    workers' refused and reported: exit 0, bench.py's keys but
+    ``extend_shape_buckets``, the device figures, B1 and B2 launched and a
+    busy share above 0 for each alignment method, the card's name, and
+    ``identity_mean`` equal to the host path's (native sketches, scipy's
+    Gram) on the same genomes; its line is printed;
+14. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -209,18 +219,6 @@ def encode(text: np.ndarray) -> np.ndarray:
     return codes
 
 
-def main_shape_tasks(rng: np.random.Generator) -> list[tuple[np.ndarray, np.ndarray]]:
-    tasks = []
-    for t in range(512):
-        m = int(rng.integers(1500, 3200)) if t % 8 else 9900
-        a = rng.integers(0, 4, m).astype(np.uint8)
-        b = a.copy()
-        mut = rng.random(m) < 0.12
-        b[mut] = (b[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
-        tasks.append((a, b))
-    return tasks
-
-
 def max_abs_err(x: list[tuple], y: list[tuple]) -> int:
     return int(np.abs(np.array(x, np.int64) - np.array(y, np.int64)).max())
 
@@ -249,6 +247,7 @@ def median_ms(fn, reps: int) -> float:
 def check_kernel(torch, ext) -> dict:
     """Phase 3: the extension kernel against its plain version and the
     host oracle, its times, and the batch-size sweep."""
+    from pyani_plus_tpu_torch.bench import extension_tasks
     from pyani_plus_tpu_torch.methods import anim
     from pyani_plus_tpu_torch.utils import intra_pair_workers
 
@@ -271,7 +270,7 @@ def check_kernel(torch, ext) -> dict:
     print(f"   identical tuples: kernel == plain == native on {len(tasks)} tasks")
     done("fuzz", t0)
 
-    tasks = main_shape_tasks(rng)
+    tasks = extension_tasks(rng, 512)
     t0 = phase("kernel vs plain at the main path's shape: 512 tasks, "
                "1500-3200 rows, every 8th 9900 rows, 12% substitutions")
     staging, order = ext.pack_tasks(tasks)
@@ -1397,6 +1396,131 @@ def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> Non
         done(f"{command} resume", t0)
 
 
+# Phase 13: the port's headline benchmark at bench.py's default widths.
+# The keys of bench.py's line on an accelerator, less extend_shape_buckets
+# (the TPU kernel's compiled shapes, which the CUDA kernel does not have).
+BENCH_DEVICE_KEYS = ("extend_compile_seconds", "extend_lanes_per_sec_device",
+                     "sketch_seconds_device_projected")
+BENCH_SCALING_KEYS = ("scaling_n_processes", "scaling_pairs_per_sec", "scaling_wall_seconds",
+                      "scaling_startup_seconds", "scaling_efficiency_n2",
+                      "scaling_efficiency_n4", "scaling_host_cores", "scaling_efficiency")
+BENCH_PY_KEYS = frozenset({
+    "metric", "value", "value_median", "value_spread", "timing_reps", "unit", "vs_baseline",
+    "fixture_max_abs_err", "sketch_seconds", "device_seconds", "compile_seconds",
+    "identity_mean", "classify_seconds", "classify_cliques", "extend_lanes_per_sec_host",
+    "anib_compile_seconds", "animinimap2_projected_days_n1000", "device_busy_fraction",
+    *(f"{method}_divergent_pair_seconds{suffix}"
+      for method in ("anim", "anib", "fastani", "dnadiff", "animinimap2")
+      for suffix in ("", "_spread")),
+    *(f"{method}_{key}" for method in ("anim", "dnadiff", "anib")
+      for key in ("column_pair_seconds", "column_pair_seconds_spread",
+                  "device_busy_fraction", "projected_days_n1000")),
+    *BENCH_DEVICE_KEYS, *BENCH_SCALING_KEYS,
+})  # fmt: skip
+BENCH_TIMEOUT = 900
+
+
+def bench_identity_mean_on_the_host() -> float:
+    """The bench's headline ``identity_mean`` at its default widths from
+    the host path: the same genomes, the native sketch on one thread and
+    scipy's Gram."""
+    from pyani_plus_tpu_torch.bench import identity_from_counts, synth_genomes
+    from pyani_plus_tpu_torch.native import sketch_codes_native
+    from pyani_plus_tpu_torch.ops.minhash import Sketch, intersection_matrix_host, max_hash_for_scaled
+
+    max_hash = max_hash_for_scaled(1000)
+    sketches = [Sketch("h", 31, 1000, np.unique(sketch_codes_native(codes, 31, max_hash)))
+                for codes in synth_genomes(1000, 100_000)]  # fmt: skip
+    counts = intersection_matrix_host(sketches).astype(np.float64)
+    sizes = np.array([s.hashes.size for s in sketches], dtype=np.float64)
+    identity, _ = identity_from_counts(counts, sizes, 31)
+    return float(np.nanmean(identity))
+
+
+def check_bench(torch, ext, work: Path, smi: str) -> dict[str, int]:
+    """Phase 13: ``python -m pyani_plus_tpu_torch.bench`` in a subprocess
+    on the card at bench.py's default widths (1,000 genomes of 100 kb, a
+    400 kb pair, 12 queries, 512 extension tasks, launch over 12 genomes of
+    20 kb at K = 1, 2, 4), in an environment built without any
+    ``PYANI_TPU*``, ``BENCH_*`` or ``CUDA_VISIBLE_DEVICES`` variable, its
+    imports and its launch workers' refused and reported
+    (``WORKER_SITE_HOOK``). It must exit 0 with bench.py's keys but
+    ``extend_shape_buckets``, the device figures, a busy share above 0 for
+    ANIm, dnadiff and ANIb (B1 and B2 ran on the card), nvidia-smi's card,
+    and the headline ``identity_mean`` equal to the host path's. Then, in this process, the extension section's call timed by the
+    host clock alone and with a synchronise before the stop. Returns the
+    bench process's launches of each kernel."""
+    hook = work / "bench_hook"
+    reports = work / "bench_reports"
+    hook.mkdir()
+    reports.mkdir()
+    (hook / "sitecustomize.py").write_text(WORKER_SITE_HOOK)
+    root = Path(__file__).resolve().parent
+    env = {key: value for key, value in os.environ.items()
+           if not key.startswith(("PYANI_TPU", "BENCH_")) and key != "CUDA_VISIBLE_DEVICES"}  # fmt: skip
+    env["PYTHONPATH"] = os.pathsep.join([str(hook), str(root),
+                                         *filter(None, [os.environ.get("PYTHONPATH")])])
+    env["SMOKE_WORKER_REPORTS"] = str(reports)
+    t0 = phase("the port's bench on the card at bench.py's default widths")
+    proc = subprocess.Popen([sys.executable, "-m", "pyani_plus_tpu_torch.bench"], cwd=root,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    seconds = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}: {err[-3000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    print(f"   bench line: {json.dumps(line)}")
+    missing = sorted(BENCH_PY_KEYS - set(line))
+    if missing or "extend_shape_buckets" in line:
+        raise AssertionError(f"the bench's keys: missing {missing}, {sorted(line)}")
+    busy = {key: line[f"{key}_device_busy_fraction"] for key in ("anim", "dnadiff", "anib")}
+    if not all(share > 0 for share in busy.values()):
+        raise AssertionError(f"a method's column did not use the card: {busy}")
+    if line["device_name"] != smi.rpartition(",")[0].strip():
+        raise AssertionError(f"the bench's card {line['device_name']!r} is not {smi!r}")
+    identity_mean = bench_identity_mean_on_the_host()
+    if line["identity_mean"] != identity_mean:
+        raise AssertionError(f"the bench's identity_mean {line['identity_mean']!r} is not the "
+                             f"host path's {identity_mean!r}")
+    found = {int(path.name): json.loads(path.read_text()) for path in reports.iterdir()}
+    foreign = {pid: report["foreign"] for pid, report in found.items() if report["foreign"]}
+    if foreign:
+        raise AssertionError(f"the bench's processes imported {foreign}")
+    report = found[proc.pid]
+    launches = {"extend": report["extend_launches"], "sw": report["sw_launches"]}
+    if report["device"] != "cuda:0" or not all(launches.values()):
+        raise AssertionError(f"the bench process: {report}")
+    workers = sorted((r["extend_launches"] or 0) for pid, r in found.items() if pid != proc.pid)
+    print(f"   keys: bench.py's {len(BENCH_PY_KEYS)} but extend_shape_buckets, and the card's "
+          f"name and limit; busy shares {busy}; B1 launches {launches['extend']}, B2 launches "
+          f"{launches['sw']} in the bench process, B1 launches in the {len(workers)} launch "
+          f"processes {workers}; no process imported jax or pyani_plus_tpu")
+    print(f"   identity_mean == the host path's (native sketches, scipy Gram): {identity_mean!r}")
+    print(f"   bench wall s: {seconds:.3f} ({smi})")
+
+    from pyani_plus_tpu_torch.bench import extension_tasks
+
+    tasks = extension_tasks(np.random.default_rng(9), 512)
+    device = torch.device("cuda", 0)
+    ext.batch_extend(tasks, device, stop_rows=600)
+    t1 = time.time()
+    ext.batch_extend(tasks, device, stop_rows=600)
+    alone = time.time() - t1
+    t1 = time.time()
+    ext.batch_extend(tasks, device, stop_rows=600)
+    torch.cuda.synchronize()
+    synced = time.time() - t1
+    print(f"   the extension section's call of 512 tasks, host clock s: {alone:.6f} alone, "
+          f"{synced:.6f} with torch.cuda.synchronize() before the stop ({smi})")
+    done("bench", t0)
+    return launches
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1459,6 +1583,7 @@ def main() -> int:
         check_graft_entry(torch, sw, report.smi)
         check_device_choice(torch, ext, runner, logger, work, anim[1], report.smi)
         check_interrupt_resume((ext, sw), runner, logger, work, report.smi)
+        check_bench(torch, ext, work, report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")

@@ -31,6 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from pyani_plus_tpu_torch import backend  # noqa: E402
+from pyani_plus_tpu_torch.bench import extension_tasks  # noqa: E402
 from pyani_plus_tpu_torch.ops import _build  # noqa: E402
 from pyani_plus_tpu_torch.ops import extend as ext  # noqa: E402
 from pyani_plus_tpu_torch.ops.extend_host import EXTEND, MATCH, MISMATCH, OPEN  # noqa: E402
@@ -90,7 +91,7 @@ def main() -> int:
         return 2
     rng = np.random.default_rng(chip_smoke.SEED)
     fuzz = chip_smoke.fuzz_tasks(rng)
-    tasks = chip_smoke.main_shape_tasks(rng)
+    tasks = extension_tasks(rng, 512)
     host_fuzz = ext.batch_extend_host(fuzz, workers=8)
     host_main = ext.batch_extend_host(tasks, workers=8)
     with tempfile.TemporaryDirectory() as tmp:
