@@ -77,12 +77,15 @@ of which raises on failure (so the exit code is not 0):
     an uninterrupted CLI run lasts over 20 s) run once through the runner
     in this process for the reference rows; then the CLI in a subprocess,
     in an environment built without the device request and with every
-    card visible, gets SIGINT 5 s after its store says Running and its
-    log names the card, and must exit within 60 s with code 0 (the JAX
-    CLI's), no traceback or CUDA error in its output, the run "Worker
-    interrupted" with some but not all rows, and its kernel launched on
-    cuda:0 (counted in the process); ``resume`` in a second subprocess
-    must reach Done with every row equal to the reference's;
+    card visible, gets SIGTERM (ANIm, as SLURM sends it) or SIGINT (ANIb)
+    5 s after its store says Running and its log names the card, and must
+    exit within 60 s with code 0 (the JAX CLI's for both signals), no
+    traceback or CUDA error in its output, the run "Worker interrupted"
+    with some but not all rows, and its kernel launched on cuda:0 (counted
+    in the process); ANIm's ``resume`` gets SIGINT the same way and must
+    leave the run "Worker interrupted" with the rows it had, and not all;
+    the last ``resume`` in a subprocess must reach Done with every row
+    equal to the reference's;
 13. the port's headline benchmark, ``python -m pyani_plus_tpu_torch.bench``,
     in a subprocess on the card at bench.py's default widths (1,000
     genomes of 100 kb for sourmash, a 400 kb pair and a column of 12
@@ -93,7 +96,21 @@ of which raises on failure (so the exit code is not 0):
     busy share above 0 for each alignment method, the card's name, and
     ``identity_mean`` equal to the host path's (native sketches, scipy's
     Gram) on the same genomes; its line is printed;
-14. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+14. the edge inputs on which the JAX package's fixture-gated tests pin
+    its behaviour, re-based on synthetic genomes as the port's tests do:
+    the coverage set (a 7,582 bp contig with a 28-N run, an 18,001 bp
+    contig, and both as two records of one file), a null pair of
+    unrelated 40 kb genomes, the N-run contig alone, and a divergent
+    pair of two-contig genomes. ANIm, dnadiff, ANIb and sourmash run over
+    each through the runner on the card and again with the CPU requested
+    (the native host route): rows equal, the coverage by contig length,
+    the NULL cross rows, the N run's identity, B1 launched by ANIm and
+    dnadiff and B2 by ANIb, sourmash's Gram on the host at these sizes;
+15. the profiler trace: ``PYANI_TPU_PROFILE`` set, ANIm and then ANIb over
+    the coverage set and the contig pair in this process; each
+    ``trace-<pid>.json`` loads and holds one CUDA kernel event of the
+    kernel's name for each launch counted, rows equal to phase 14's;
+16. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -1269,6 +1286,8 @@ INTERRUPT_RATES = [0.01 + 0.04 * i / 7 for i in range(8)]
 INTERRUPT_LENGTH = 200_000
 INTERRUPT_DELAY = 5.0  # seconds from "Running" and the card in the log to SIGINT
 INTERRUPT_KERNEL = {"ANIm": ("B1", "extend_launches"), "ANIb": ("B2", "sw_launches")}
+# SLURM stops a job with SIGTERM; a user at the terminal with SIGINT.
+INTERRUPT_SIGNAL = {"ANIm": signal.SIGTERM, "ANIb": signal.SIGINT}
 FAULTS = ("Traceback", "CUDA error", "cudaError", "CUDA_ERROR", "illegal memory access",
           "terminate called", "Segmentation fault", "core dumped")
 
@@ -1302,17 +1321,53 @@ def cli_report(text: str, reports: Path, method: str, tag: str, code: int) -> di
     return report
 
 
+def interrupt_cli(argv: list[str], method: str, db: Path, log: Path, reports: Path,
+                  sig: signal.Signals, env: dict[str, str]) -> tuple[int, float, float]:
+    """Start the port's CLI (``argv``) in a subprocess and send it `sig`
+    ``INTERRUPT_DELAY`` s after its store says Running and its log names
+    the card. Returns (exit code, seconds to Running, seconds from the
+    signal to the exit)."""
+    t0 = time.monotonic()
+    reports.mkdir()
+    with log.open("w") as out:
+        proc = subprocess.Popen(argv, cwd=Path(__file__).resolve().parent,
+                                env={**env, "SMOKE_WORKER_REPORTS": str(reports)}, stdout=out,
+                                stderr=subprocess.STDOUT)  # fmt: skip
+    try:
+        deadline = time.monotonic() + 120
+        while not (run_status(db) == "Running" and f"{method} runs on cuda:" in log.read_text()):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"{method} never ran on the card: {log.read_text()[-1500:]}")
+            time.sleep(0.05)
+        running = time.monotonic() - t0
+        time.sleep(INTERRUPT_DELAY)
+        if proc.poll() is not None:
+            raise AssertionError(f"{method} ended before the signal: make it longer")
+        signalled = time.monotonic()
+        proc.send_signal(sig)
+        code = proc.wait(timeout=60)
+        return code, running, time.monotonic() - signalled
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> None:
-    """Phase 12: SIGINT to the port's CLI on the card, then ``resume``,
+    """Phase 12: a signal to the port's CLI on the card, then ``resume``,
     for ANIm (pair threads launching B1 on their own streams) and ANIb (up
     to three B2 launches queued, side threads waiting on their events).
     For each method: an uninterrupted run through the runner in this
     process gives the reference rows; the CLI in a subprocess (an
     environment built here: no device request, every card visible) is
-    sent SIGINT ``INTERRUPT_DELAY`` s after its store says Running and its
-    log names the card; it must exit 0 within 60 s, no fault in its output, the run "Worker interrupted" with some but not
-    all rows, and its kernel launched; ``resume`` in a second subprocess
-    must reach Done with every row equal to the reference's."""
+    sent SIGTERM (ANIm, as SLURM sends it) or SIGINT (ANIb)
+    ``INTERRUPT_DELAY`` s after its store says Running and its log names
+    the card; it must exit 0 (the JAX CLI's code for both signals) within
+    60 s, no fault in its output, the run "Worker interrupted" with some
+    but not all rows, and its kernel launched. ANIm's ``resume`` is sent
+    SIGINT the same way and must leave the run "Worker interrupted" with
+    the rows it had, and not all; the last ``resume`` must reach Done with
+    every row equal to the reference's."""
     from pyani_plus_tpu_torch.synthetic import write_genome_dir
 
     hook = work / "interrupt_hook"
@@ -1329,6 +1384,7 @@ def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> Non
     n_pairs = len(INTERRUPT_RATES) ** 2
     for (method, command), kernel in zip((("ANIm", "anim"), ("ANIb", "anib")), kernels):
         name, key = INTERRUPT_KERNEL[method]
+        sig = INTERRUPT_SIGNAL[method]
         reference, launches, seconds = run_method(kernel, runner, logger, work, genomes, method,
                                                   f"{command}_uninterrupted", host_env=None)
         if len(reference) != n_pairs or not launches:
@@ -1337,45 +1393,44 @@ def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> Non
         print(f"   {method} uninterrupted: {len(INTERRUPT_RATES)} genomes of "
               f"{INTERRUPT_LENGTH} bp, {n_pairs} rows in {seconds:.3f} s ({smi})")
 
-        db, log = work / f"{command}_interrupted.db", work / f"{command}_interrupted.log"
-        reports = work / f"{command}_interrupted_reports"
-        reports.mkdir()
-        t0 = phase(f"{method} CLI on the card, SIGINT {INTERRUPT_DELAY} s after Running")
-        with log.open("w") as out:
-            proc = subprocess.Popen(
-                [*cli, command, str(genomes), "-d", str(db), "--create-db"], cwd=root,
-                env={**env, "SMOKE_WORKER_REPORTS": str(reports)}, stdout=out,
-                stderr=subprocess.STDOUT,
-            )  # fmt: skip
-        try:
-            deadline = time.monotonic() + 120
-            while not (run_status(db) == "Running" and f"{method} runs on cuda:" in log.read_text()):
-                if proc.poll() is not None or time.monotonic() > deadline:
-                    raise AssertionError(f"{method} never ran on the card: {log.read_text()[-1500:]}")
-                time.sleep(0.05)
-            running = time.monotonic() - t0
-            time.sleep(INTERRUPT_DELAY)
-            if proc.poll() is not None:
-                raise AssertionError(f"{method} ended before the signal: make it longer")
-            signalled = time.monotonic()
-            proc.send_signal(signal.SIGINT)
-            code = proc.wait(timeout=60)
-            exit_seconds = time.monotonic() - signalled
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        report = cli_report(log.read_text(), reports, method, "interrupted", code)
+        db, tag = work / f"{command}_interrupted.db", f"{command}_interrupted"
+        t0 = phase(f"{method} CLI on the card, {sig.name} {INTERRUPT_DELAY} s after Running")
+        code, running, exit_seconds = interrupt_cli(
+            [*cli, command, str(genomes), "-d", str(db), "--create-db"], method, db,
+            work / f"{tag}.log", work / f"{tag}_reports", sig, env)  # fmt: skip
+        report = cli_report((work / f"{tag}.log").read_text(), work / f"{tag}_reports", method,
+                            "interrupted", code)  # fmt: skip
         status, partial = run_status(db), comparison_rows(db)
         if status != "Worker interrupted" or not 0 < len(partial) < n_pairs:
             raise AssertionError(f"{method} interrupted: status {status!r}, {len(partial)} rows")
         if not set(partial) <= set(reference):
             raise AssertionError(f"{method} interrupted: a stored row differs from the reference")
         print(f"   {method}: Running and the card after {running:.3f} s; exit {code} "
-              f"{exit_seconds:.3f} s after SIGINT; status {status!r}; {len(partial)} of "
+              f"{exit_seconds:.3f} s after {sig.name}; status {status!r}; {len(partial)} of "
               f"{n_pairs} rows stored; {name} launches in the process "
               f"{report[key]} ({smi})")
         done(f"{command} interrupted", t0)
+
+        if method == "ANIm":
+            tag = f"{command}_resume_interrupted"
+            t0 = phase(f"{method} resume on the card, SIGINT {INTERRUPT_DELAY} s after Running")
+            code, running, exit_seconds = interrupt_cli(
+                [*cli, "resume", "-d", str(db)], method, db, work / f"{tag}.log",
+                work / f"{tag}_reports", signal.SIGINT, env)  # fmt: skip
+            report = cli_report((work / f"{tag}.log").read_text(), work / f"{tag}_reports",
+                                method, "resume interrupted", code)  # fmt: skip
+            status, rows = run_status(db), comparison_rows(db)
+            if status != "Worker interrupted" or not len(partial) <= len(rows) < n_pairs:
+                raise AssertionError(f"{method} resume interrupted: status {status!r}, "
+                                     f"{len(rows)} rows after {len(partial)}")
+            if not set(partial) <= set(rows) <= set(reference):
+                raise AssertionError(f"{method} resume interrupted: a row was lost or differs "
+                                     "from the reference")
+            print(f"   {method} resume: Running and the card after {running:.3f} s; exit {code} "
+                  f"{exit_seconds:.3f} s after SIGINT; status {status!r}; {len(rows)} of "
+                  f"{n_pairs} rows stored ({len(partial)} before); {name} launches in the "
+                  f"process {report[key]} ({smi})")
+            done(f"{command} resume interrupted", t0)
 
         reports = work / f"{command}_resumed_reports"
         reports.mkdir()
@@ -1521,6 +1576,181 @@ def check_bench(torch, ext, work: Path, smi: str) -> dict[str, int]:
     return launches
 
 
+# Phase 14: the inputs on which the JAX package's end-to-end behaviour is
+# pinned by its fixture-gated tests, re-based on synthetic genomes with the
+# seeds of the port's tests that hold it to the JAX package on the CPU
+# (tests/test_torch_coverage_semantics.py, test_torch_bad_alignments_e2e.py,
+# test_torch_self_vs_self.py): multi-contig coverage, NULL cross rows, an
+# N run, and a divergent pair of two-contig genomes whose alignment blocks
+# end short of the contig ends (the coverage set's contigs align end to
+# end or not at all, the null pair not at all, so only this pair leaves
+# ANIm and dnadiff tails to extend).
+EDGE_METHODS = ("ANIm", "dnadiff", "ANIb", "sourmash")
+EDGE_KERNEL = {"ANIm": "B1", "dnadiff": "B1", "ANIb": "B2"}
+N_RUN_LENGTH = 7582  # the reference's N-run contig; ANIm scores it 1 - 28/7,582
+N_RUN_ANIM_IDENTITY = 0.9963070429965708
+
+
+def write_edge_inputs(root: Path) -> dict[str, Path]:
+    """The coverage set, the null pair, the N-run genome (alone: its self
+    pair) and the divergent contig pair, each in a directory of its own."""
+    from pyani_plus_tpu_torch import synthetic
+
+    synthetic.write_coverage_set(root / "coverage", seed=1)
+    synthetic.write_null_pair(root / "null_pair", 40_000, seed=2)
+    (root / "n_run").mkdir()
+    synthetic.write_n_run_genome(root / "n_run" / "n_run.fasta", N_RUN_LENGTH, seed=3)
+    synthetic.write_contig_pair(root / "contigs", seed=4)
+    return {name: root / name for name in ("coverage", "null_pair", "n_run", "contigs")}
+
+
+def edge_run(counters: dict, runner, logger, work: Path, fasta: Path, method: str,
+             tag: str) -> tuple[list[tuple], dict[str, int]]:
+    """One run through the port's runner with every launch count zeroed
+    just before it. Returns (rows, launches by counter)."""
+    for module in counters.values():
+        module.reset_counts()
+    db = work / f"{tag}.db"
+    runner.start_and_run_method(logger, db, fasta, method, create_db=True, cache=work / f"{tag}_cache")
+    return comparison_rows(db), {name: module.LAUNCHES for name, module in counters.items()}
+
+
+def check_edge_rows(name: str, method: str, rows: list[tuple]) -> None:
+    """The JAX cases' assertions on one input's rows, each row
+    (query, subject, identity, aln_length, sim_errors, cov_query,
+    cov_subject)."""
+    from pyani_plus_tpu_torch.synthetic import COVERAGE_CONTIGS
+
+    by = {(Path(q).stem, Path(s).stem): tuple(rest) for q, s, *rest in rows}
+    null = (None,) * 5
+    fault = f"{method} on the {name} input: {by}"
+    if name == "coverage":
+        if len(by) != 9 or by["small", "large"] != null or by["large", "small"] != null:
+            raise AssertionError(fault)
+        if method != "sourmash":  # alignment coverage by contig length; sourmash's is k-mers
+            small, large = COVERAGE_CONTIGS["small"], COVERAGE_CONTIGS["large"]
+            want = {("both", "small"): small / (small + large),
+                    ("both", "large"): large / (small + large)}  # fmt: skip
+            for key, row in by.items():
+                if row != null and abs(row[3] - want.get(key, 1.0)) > 5e-10:
+                    raise AssertionError(fault)
+    elif name == "null_pair":
+        cross = [row for (q, s), row in by.items() if q != s]
+        if len(by) != 4 or cross != [null, null]:
+            raise AssertionError(fault)
+        if not all(row[0] > 0.99 for (q, s), row in by.items() if q == s):
+            raise AssertionError(fault)
+    elif name == "n_run":
+        [row] = by.values()
+        if method == "ANIm" and abs(row[0] - N_RUN_ANIM_IDENTITY) > 1e-12:
+            raise AssertionError(fault)
+        if method != "ANIm" and row[0] != 1.0:
+            raise AssertionError(fault)
+    elif name == "contigs":  # sourmash's cross rows: at scaled 1,000 these 6.5 kb share little
+        for (q, s), row in by.items():
+            if (q == s and row[0] != 1.0) or (q != s and method != "sourmash"
+                                              and not 0.9 < row[0] < 1.0):  # fmt: skip
+                raise AssertionError(fault)
+
+
+def check_edge_inputs(counters: dict, runner, logger, work: Path, smi: str) -> dict:
+    """Phase 14: ANIm, dnadiff, ANIb and sourmash over each edge input
+    through the port's runner on the card, and again with the CPU
+    requested in this process (the native host route); rows equal (ints
+    exact, floats ==), the JAX cases' assertions met, B1 launched by ANIm
+    and dnadiff and B2 by ANIb; sourmash's Gram stays on the host at these
+    sizes. Returns the card's rows by (method, input)."""
+    from pyani_plus_tpu_torch import backend
+    from pyani_plus_tpu_torch.ops.minhash import Sketch
+
+    t0 = phase("edge inputs: the coverage set, the null pair, the N-run genome, the contig pair")
+    inputs = write_edge_inputs(work / "edge")
+    rows: dict[tuple[str, str], list[tuple]] = {}
+    for method in EDGE_METHODS:
+        totals = dict.fromkeys(counters, 0)
+        for name, fasta in inputs.items():
+            t1 = time.monotonic()
+            card, launches = edge_run(counters, runner, logger, work, fasta, method,
+                                      f"edge_{method}_{name}_card")  # fmt: skip
+            card_seconds = time.monotonic() - t1
+            os.environ[backend.ENV_DEVICE] = "cpu"
+            try:
+                t1 = time.monotonic()
+                host, host_launches = edge_run(counters, runner, logger, work, fasta, method,
+                                               f"edge_{method}_{name}_host")  # fmt: skip
+                host_seconds = time.monotonic() - t1
+            finally:
+                os.environ.pop(backend.ENV_DEVICE)
+            if card != host:
+                raise AssertionError(f"{method} on the {name} input: card rows {card} != host "
+                                     f"rows {host}")
+            if any(host_launches.values()):
+                raise AssertionError(f"{method} on the {name} input: the host route launched "
+                                     f"{host_launches}")
+            check_edge_rows(name, method, card)
+            rows[method, name] = card
+            for key, count in launches.items():
+                totals[key] += count
+            print(f"   {method} {name}: {len(card)} rows, card == host route (ints exact, "
+                  f"floats ==); launches {launches}; s card {card_seconds:.3f}, host "
+                  f"{host_seconds:.3f}")
+        kernel = EDGE_KERNEL.get(method)
+        if kernel and not totals[kernel]:
+            raise AssertionError(f"{method} never launched {kernel} on the edge inputs")
+        if method == "sourmash":
+            if totals["Gram"]:
+                raise AssertionError(f"sourmash launched the device Gram {totals['Gram']} times")
+            sketches = {path.name: path for path in
+                        work.glob("edge_sourmash_*_card_cache/sourmash_k=31_scaled=1000/*.npy")}  # fmt: skip
+            hashes = sum(Sketch("", 31, 1000, np.load(path)).num_hashes for path in sketches.values())
+            print(f"   sourmash: at most 3 genomes an input and {hashes} hashes in all (below "
+                  f"2^18): the Gram takes the host route, no launch claimed")
+    seconds = time.monotonic() - t0
+    print(f"   phase 14 wall s: {seconds:.3f} ({smi})")
+    done("edge inputs", t0)
+    return rows
+
+
+def check_profiler_trace(counters: dict, runner, logger, work: Path, edge_rows: dict,
+                         smi: str) -> None:
+    """Phase 15: ``PYANI_TPU_PROFILE`` on the card. ANIm and then ANIb over
+    the coverage set and the contig pair through the runner in this
+    process, each into a directory of its own: ``trace-<pid>.json`` must
+    load as JSON and hold one CUDA kernel event whose name contains the
+    kernel's symbol for each launch its wrapper counted, in all more than
+    none; rows equal to phase 14's."""
+    inputs = {"coverage": work / "edge" / "coverage", "contigs": work / "edge" / "contigs"}
+    for method, kernel, symbol in (("ANIm", "B1", "extend_kernel"), ("ANIb", "B2", "sw_kernel")):
+        seen = 0
+        for name, fasta in inputs.items():
+            trace_dir = work / f"trace_{method}_{name}"
+            t0 = phase(f"{method} over the {name} input under the profiler")
+            os.environ["PYANI_TPU_PROFILE"] = str(trace_dir)
+            try:
+                rows, launches = edge_run(counters, runner, logger, work, fasta, method,
+                                          f"trace_{method}_{name}")  # fmt: skip
+            finally:
+                os.environ.pop("PYANI_TPU_PROFILE")
+            seconds = time.monotonic() - t0
+            trace = trace_dir / f"trace-{os.getpid()}.json"
+            events = json.loads(trace.read_text())["traceEvents"]
+            kinds = sorted({event.get("cat", "") for event in events})
+            found = [event for event in events
+                     if event.get("cat") == "kernel" and symbol in event.get("name", "")]  # fmt: skip
+            if len(found) != launches[kernel]:
+                raise AssertionError(f"{method} {name}: {len(found)} {symbol} events in the trace, "
+                                     f"{launches[kernel]} launches; categories {kinds}")
+            if rows != edge_rows[method, name]:
+                raise AssertionError(f"{method} {name}: rows under the profiler differ from phase 14's")
+            seen += len(found)
+            print(f"   {trace.name}: {trace.stat().st_size} bytes, {len(events)} events, "
+                  f"{len(found)} {symbol} kernel events == {launches[kernel]} {kernel} launches; "
+                  f"rows equal to phase 14's; s {seconds:.3f} ({smi})")
+            done(f"{method} {name} traced", t0)
+        if not seen:
+            raise AssertionError(f"{method}: no {symbol} event in any trace")
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1584,6 +1814,9 @@ def main() -> int:
         check_device_choice(torch, ext, runner, logger, work, anim[1], report.smi)
         check_interrupt_resume((ext, sw), runner, logger, work, report.smi)
         check_bench(torch, ext, work, report.smi)
+        counters = {"B1": ext, "B2": sw, "Gram": minhash}
+        edge_rows = check_edge_inputs(counters, runner, logger, work, report.smi)
+        check_profiler_trace(counters, runner, logger, work, edge_rows, report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")

@@ -103,6 +103,91 @@ def write_fasta(path: Path, name: str, seq: np.ndarray, width: int = 80) -> Path
     return path
 
 
+def write_multi_fasta(path: Path, records: list[tuple[str, np.ndarray]], width: int = 80) -> Path:
+    """Several records, each (name, ASCII sequence), in one FASTA file."""
+    path.write_bytes(b"".join(_fasta_record(f">{name} synthetic", seq, width) for name, seq in records))
+    return path
+
+
+def random_sequence(length: int, rng: np.random.Generator) -> np.ndarray:
+    """`length` uniform random bases: unrelated to any other sequence."""
+    return _BASES[rng.integers(0, 4, length)]
+
+
+# The reference's coverage set: two contigs of one assembly (MIBY01000005,
+# 7,582 bp with a 28-N run; MIBY01000011, 18,001 bp), each alone and both
+# in one file. These stand in for them: random contigs of the same lengths.
+COVERAGE_CONTIGS = {"small": 7582, "large": 18001}
+# (offset, length) of the small contig's N run: inside ANIb's fourth
+# 1,020 bp fragment (3,060-4,079), whose alignment crosses it, as the
+# reference's does, so that the fragment keeps its full coverage.
+COVERAGE_N_RUN = (3550, 28)
+
+
+def write_coverage_set(directory: Path, seed: int) -> list[Path]:
+    """small.fasta (7,582 bp with a 28-N run), large.fasta (18,001 bp) and
+    both.fasta (the two records in one file) in `directory`."""
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    contigs = {name: random_sequence(length, rng) for name, length in COVERAGE_CONTIGS.items()}
+    offset, run = COVERAGE_N_RUN
+    contigs["small"][offset : offset + run] = ord("N")
+    return [
+        write_multi_fasta(directory / "small.fasta", [("small_contig", contigs["small"])]),
+        write_multi_fasta(directory / "large.fasta", [("large_contig", contigs["large"])]),
+        write_multi_fasta(directory / "both.fasta", [(f"{name}_contig", seq) for name, seq in contigs.items()]),
+    ]
+
+
+# The stems of the reference's bad_alignments pair: two phage genomes that
+# share no homology.
+NULL_PAIR_STEMS = ("MGV-GENOME-0264574", "MGV-GENOME-0357962")
+
+
+def write_null_pair(directory: Path, length: int, seed: int) -> list[Path]:
+    """Two unrelated random genomes of `length` bp, named by the
+    bad_alignments stems: every cross comparison is NULL."""
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    return [write_fasta(directory / f"{stem}.fna", stem, random_sequence(length, rng)) for stem in NULL_PAIR_STEMS]
+
+
+def write_n_run_genome(path: Path, length: int, seed: int) -> Path:
+    """One random genome of `length` bp with a run of 28 Ns in its middle,
+    as in the coverage set's small contig."""
+    run = COVERAGE_N_RUN[1]
+    seq = random_sequence(length, np.random.default_rng(seed))
+    seq[(length - run) // 2 : (length + run) // 2] = ord("N")
+    return write_fasta(path, path.stem, seq)
+
+
+# A divergent pair of two-contig genomes: alignment blocks that end short
+# of a contig's end leave tails for the free-end extension.
+CONTIG_PAIR_LENGTHS = [4000, 2500]
+CONTIG_PAIR_RATE = 0.05
+
+
+def write_contig_pair(directory: Path, seed: int) -> list[Path]:
+    """contigs.fna (two random contigs) and contigs_mutated.fna (each
+    contig ``mutate``d at 5%) in `directory`."""
+    directory.mkdir(parents=True, exist_ok=True)
+    return [
+        write_contigs_genome(directory / "contigs.fna", CONTIG_PAIR_LENGTHS, seed),
+        write_contigs_genome(directory / "contigs_mutated.fna", CONTIG_PAIR_LENGTHS, seed, CONTIG_PAIR_RATE),
+    ]
+
+
+def write_contigs_genome(path: Path, lengths: list[int], seed: int, rate: float = 0.0) -> Path:
+    """One genome of unrelated random contigs of `lengths` bp, one record
+    each; at `rate` > 0 each contig is a ``mutate``d copy of the contig
+    that the same seed gives at rate 0."""
+    rng = np.random.default_rng(seed)
+    contigs = [random_sequence(n, rng) for n in lengths]
+    if rate:
+        contigs = [mutate(contig, rate, rng) for contig in contigs]
+    return write_multi_fasta(path, [(f"{path.stem}_{i}", seq) for i, seq in enumerate(contigs)])
+
+
 def write_genome_dir(
     directory: Path, length: int, rates: list[float], seed: int
 ) -> list[Path]:

@@ -154,3 +154,66 @@ def test_sigint_mid_run(command: str, method: str, length: int, tmp_path: Path) 
         if (q + s) % N_GENOMES == 0
     }
     assert {pair: rows[pair] for pair in subset} == _jax_rows(method, paths, subset)
+
+
+def test_sigterm_mid_run_both_packages(tmp_path: Path) -> None:
+    """SIGTERM, as SLURM sends it, to a live ANIm run of each package's
+    CLI, side by side: the same exit code (the JAX runner turns SIGTERM
+    into its interrupt), ``Worker interrupted`` with partial rows, and
+    after ``resume`` every row equal between the packages."""
+    write_genome_dir(
+        tmp_path / "genomes", 50_000, [0.01 + 0.005 * i for i in range(N_GENOMES)], seed=43
+    )
+    env = {**os.environ, "PYANI_TPU_PAIR_WORKERS": "1"}
+    clis = {"jax": "pyani_plus_tpu.cli.main", "torch": "pyani_plus_tpu_torch.cli.main"}
+    dbs = {tag: tmp_path / f"{tag}.sqlite" for tag in clis}
+    procs = {
+        tag: subprocess.Popen(
+            [sys.executable, "-m", module, "anim", str(tmp_path / "genomes"), "-d", str(dbs[tag]),
+             "--create-db"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        for tag, module in clis.items()
+    }  # fmt: skip
+    outcomes = {}
+    try:
+        signalled: set[str] = set()
+        deadline = time.monotonic() + 120
+        running: dict[str, float] = {}
+        while len(signalled) < len(procs):
+            assert time.monotonic() < deadline, "a run never reached Running"
+            for tag, proc in procs.items():
+                if tag not in running and _status(dbs[tag]) == "Running":
+                    running[tag] = time.monotonic()
+                if tag in running and tag not in signalled and time.monotonic() > running[tag] + DELAY:
+                    assert proc.poll() is None, f"{tag}: the run ended before the signal"
+                    proc.send_signal(signal.SIGTERM)
+                    signalled.add(tag)
+                assert tag in signalled or proc.poll() is None, f"{tag} ended early"
+            time.sleep(0.05)
+        for tag, proc in procs.items():
+            out, _ = proc.communicate(timeout=60)
+            outcomes[tag] = (proc.returncode, out.decode())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    assert outcomes["torch"][0] == outcomes["jax"][0] == 0, outcomes["torch"][1][-2000:]
+    for tag, (_code, text) in outcomes.items():
+        assert "Traceback" not in text, text[-2000:]
+        assert _status(dbs[tag]) == "Worker interrupted", (tag, text[-2000:])
+        assert 1 <= len(_rows(dbs[tag])) < N_GENOMES**2, tag
+
+    resumes = {
+        tag: subprocess.Popen([sys.executable, "-m", module, "resume", "-d", str(dbs[tag])], cwd=REPO,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for tag, module in clis.items()
+    }  # fmt: skip
+    for tag, proc in resumes.items():
+        out, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, (tag, out.decode()[-2000:])
+        assert _status(dbs[tag]) == "Done"
+    rows = {tag: _rows(db) for tag, db in dbs.items()}
+    assert len(rows["torch"]) == N_GENOMES**2
+    assert rows["torch"] == rows["jax"]
