@@ -110,7 +110,23 @@ of which raises on failure (so the exit code is not 0):
     the coverage set and the contig pair in this process; each
     ``trace-<pid>.json`` loads and holds one CUDA kernel event of the
     kernel's name for each launch counted, rows equal to phase 14's;
-16. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+16. the unit edges and a long trace: the edge inputs of the port's unit
+    tests (``synthetic.extension_edge_tasks``: the named DP pairs, one-code,
+    N-only and IUPAC tasks, the two fuzz sets, the four tasks around the
+    JAX package's largest bucket of 10,240 columns, the band DP trials and
+    gaps at a block's ends; ``synthetic.sw_edge_tasks``: the named pairs,
+    the score-parity, IUPAC, trim-equivalence (bare and padded) and Pallas
+    sets, ANIb's tail, all-N and padding fragments, a window as wide as
+    the width rule's edge and a task at each side of it) through each
+    kernel in one launch, tuples equal to the plain version's and the
+    native oracle's; ``synthetic.gram_edge_sets`` (identical, disjoint,
+    nested and empty sketches) through the Gram on the card, counts equal
+    to the host's and the ANI matrices with NaN in the same places; then
+    phase 5's ANIm over the 2 Mb genomes once more without and once with
+    ``PYANI_TPU_PROFILE``: rows equal to phase 5's, one ``extend_kernel``
+    event in the trace for each of the run's launches, the two walls and
+    the trace's bytes printed;
+17. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -1751,6 +1767,128 @@ def check_profiler_trace(counters: dict, runner, logger, work: Path, edge_rows: 
             raise AssertionError(f"{method}: no {symbol} event in any trace")
 
 
+def by_group(groups: dict[str, list], results: list) -> dict[str, list]:
+    """Results of the groups' tasks, taken in order, split by group."""
+    out, start = {}, 0
+    for name, tasks in groups.items():
+        out[name] = results[start : start + len(tasks)]
+        start += len(tasks)
+    return out
+
+
+def check_unit_edges(torch, ext, sw, minhash, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 16a: the unit tests' edge inputs through B1, B2 and the Gram
+    on the card. Each kernel takes its tasks in one launch (counted apart
+    from the main path's), tuples equal to the plain version's and the
+    native oracle's; the Gram's counts equal the host's, its ANI matrices
+    the host route's (NaN in the same places). Returns each kernel's
+    launches and tasks."""
+    from pyani_plus_tpu_torch import synthetic
+
+    workers = os.cpu_count() or 1
+    record = {}
+    kernels = (
+        ("extend", ext, synthetic.extension_edge_tasks(SEED + 5), ext.batch_extend_cuda,
+         ext.batch_extend_reference, lambda tasks: ext.batch_extend_host(tasks, workers=workers)),
+        ("sw", sw, synthetic.sw_edge_tasks(SEED + 6, rule_edge=True), sw.batch_sw_best_cuda,
+         sw.batch_sw_best_reference, lambda tasks: sw.batch_sw_best_host(tasks, workers=workers)),
+    )  # fmt: skip
+    for name, module, groups, kernel, plain_fn, host_fn in kernels:
+        tasks = [task for group in groups.values() for task in group]
+        t0 = phase(f"unit edges through {name}: {len(tasks)} tasks in {len(groups)} groups "
+                   f"({', '.join(f'{g} {len(v)}' for g, v in groups.items())}), longest "
+                   f"{max(max(a.size, b.size) for a, b in tasks)}")  # fmt: skip
+        launches, count = module.LAUNCHES, module.TASKS
+        got = kernel(tasks)
+        torch.cuda.synchronize()
+        launches, count = module.LAUNCHES - launches, module.TASKS - count
+        t1 = time.monotonic()
+        plain = plain_fn(tasks)
+        plain_seconds = time.monotonic() - t1
+        host = host_fn(tasks)
+        split = [by_group(groups, results) for results in (got, plain, host)]
+        bad = [f"{group}[{i}]: {rows}" for group in groups
+               for i, rows in enumerate(zip(*(s[group] for s in split))) if len(set(rows)) > 1]  # fmt: skip
+        if bad:
+            raise AssertionError(f"{name} disagrees on {len(bad)} unit edge tasks: {bad[:3]}")
+        if launches != 1 or count != len(tasks):
+            raise AssertionError(f"{name}: {launches} launches, {count} tasks; expected 1 and {len(tasks)}")
+        if name == "extend":
+            oversize = [r for (a, _b), r in zip(groups["oversize"], split[0]["oversize"])
+                        if a.size > synthetic.EXTEND_BUCKET_LIMIT]  # fmt: skip
+            far = max(r[0] for r in oversize)
+            if len(oversize) != 2 or far <= synthetic.EXTEND_BUCKET_LIMIT:
+                raise AssertionError(f"the oversize tasks did not extend past the bucket: {oversize}")
+            print(f"   the {len(oversize)} tasks past {synthetic.EXTEND_BUCKET_LIMIT} columns in the "
+                  f"one launch; the longer extends {far} rows")
+        else:
+            packed = sum(sw.uses_packed_lanes(a.size, b.size) for a, b in tasks)
+            if not 0 < packed < len(tasks):
+                raise AssertionError("the SW unit edges must hold tasks of both widths")
+            print(f"   {packed} tasks in packed 16-bit lanes, {len(tasks) - packed} in 32-bit words")
+        print(f"   identical tuples: kernel == plain == native on {len(tasks)} tasks; "
+              f"{launches} launch, {count} tasks; plain s {plain_seconds:.3f} ({smi})")
+        record[name] = {"unit_edge_launches": launches, "unit_edge_tasks": count}
+        done(f"{name} unit edges", t0)
+
+    sets = synthetic.gram_edge_sets()
+    t0 = phase(f"unit edges through the Gram: {', '.join(sets)}")
+    launches = minhash.LAUNCHES
+    for name, sketches in sets.items():
+        host = minhash.intersection_matrix_host(sketches)
+        card = minhash.intersection_matrix_device(sketches, device="cuda")
+        if not np.array_equal(card, host):
+            raise AssertionError(f"Gram {name}: card {card.tolist()} != host {host.tolist()}")
+        for x, y in zip(minhash.containment_ani(sketches, use_device=True),
+                        minhash.containment_ani(sketches, use_device=False)):  # fmt: skip
+            if not np.array_equal(x, y, equal_nan=True):
+                raise AssertionError(f"Gram {name}: card ANI {x.tolist()} != host {y.tolist()}")
+        print(f"   {name}: counts {card.tolist()} == host; ANI == host route (NaN where NaN)")
+    launches = minhash.LAUNCHES - launches
+    if launches != 2 * len(sets):
+        raise AssertionError(f"the Gram ran {launches} times on the card, expected {2 * len(sets)}")
+    done("Gram unit edges", t0)
+    return record
+
+
+def check_long_trace(ext, runner, logger, work: Path, genomes: Path,
+                     anim_rows: list[tuple], anim_launches: int, smi: str) -> None:
+    """Phase 16b: the trace's cost on a long run. Phase 5's ANIm over the
+    2 Mb genomes, once without and then once with ``PYANI_TPU_PROFILE``,
+    the card equally warm for both: rows equal to phase 5's, as many
+    launches, and one ``extend_kernel`` kernel event in the trace for each
+    launch."""
+    rows, launches, untraced = run_method(ext, runner, logger, work, genomes, "ANIm",
+                                          "anim_untraced", host_env=None)  # fmt: skip
+    if rows != anim_rows or launches != anim_launches:
+        raise AssertionError(f"ANIm again: {launches} launches, rows equal {rows == anim_rows}")
+    trace_dir = work / "trace_anim_2mb"
+    os.environ["PYANI_TPU_PROFILE"] = str(trace_dir)
+    try:
+        rows, launches, traced = run_method(ext, runner, logger, work, genomes, "ANIm",
+                                            "anim_traced", host_env=None)  # fmt: skip
+    finally:
+        os.environ.pop("PYANI_TPU_PROFILE")
+    t0 = phase("ANIm's 2 Mb trace")
+    trace = trace_dir / f"trace-{os.getpid()}.json"
+    size = trace.stat().st_size
+    events = json.loads(trace.read_text())["traceEvents"]
+    found = [event for event in events
+             if event.get("cat") == "kernel" and "extend_kernel" in event.get("name", "")]  # fmt: skip
+    if rows != anim_rows:
+        raise AssertionError("ANIm under the profiler: rows differ from phase 5's")
+    if not len(found) == launches == anim_launches:
+        raise AssertionError(f"ANIm under the profiler: {len(found)} extend_kernel events, "
+                             f"{launches} launches, phase 5 {anim_launches}")
+    kernel_us = sum(event.get("dur", 0) for event in found)
+    print(f"   {trace.name}: {size} bytes, {len(events)} events, {len(found)} extend_kernel "
+          f"events == {launches} B1 launches (their durations {kernel_us / 1e3:.3f} ms); "
+          f"rows equal to phase 5's")
+    print(f"   ANIm 3 x 2 Mb wall s: untraced {untraced:.3f}, traced {traced:.3f} "
+          f"({traced / untraced:.3f} x) ({smi})")
+    done("2 Mb trace", t0)
+
+
 def build_kernels(_build) -> None:
     """Phase 2: one nvcc for each kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1817,6 +1955,8 @@ def main() -> int:
         counters = {"B1": ext, "B2": sw, "Gram": minhash}
         edge_rows = check_edge_inputs(counters, runner, logger, work, report.smi)
         check_profiler_trace(counters, runner, logger, work, edge_rows, report.smi)
+        unit_edges = check_unit_edges(torch, ext, sw, minhash, report.smi)
+        check_long_trace(ext, runner, logger, work, paths[0].parent, anim[1], anim[0], report.smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = phase("the port stands alone")
@@ -1836,6 +1976,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": launches[name],
                 **timing[name],
+                **unit_edges[name],
             }
             for name, (source, replaces) in KERNELS.items()
         ]

@@ -188,6 +188,21 @@ def write_contigs_genome(path: Path, lengths: list[int], seed: int, rate: float 
     return write_multi_fasta(path, [(f"{path.stem}_{i}", seq) for i, seq in enumerate(contigs)])
 
 
+def write_rotated_pair(directory: Path, length: int, rate: float, seed: int) -> list[Path]:
+    """genome.fna (random, `length` bp) and rotated.fna (a ``mutate``d
+    copy at `rate`, rotated by a third of its length) in `directory`: a
+    circular genome read from two origins, aligned in two blocks that
+    meet at the rotation point."""
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genome = random_sequence(length, rng)
+    copy = mutate(genome, rate, rng)
+    return [
+        write_fasta(directory / "genome.fna", "genome", genome),
+        write_fasta(directory / "rotated.fna", "rotated", np.roll(copy, length // 3)),
+    ]
+
+
 def write_genome_dir(
     directory: Path, length: int, rates: list[float], seed: int
 ) -> list[Path]:
@@ -326,3 +341,285 @@ def clade_sketches(
         size = int(rng.integers(sizes[0], sizes[1] + 1))
         out.append(_sketch(f"sketch{i}", np.concatenate([shared, _hashes(rng, max(0, size - shared.size))])))
     return out
+
+
+# The JAX package's unit edge inputs, drawn as its unit tests draw them
+# (tests/test_dp.py, test_native.py, test_anib.py and
+# test_tiles_minhash_edges.py), for the port's unit tests and the card
+# smoke run's unit-edge phase. A task is (a, b) of uint8 codes.
+
+_DP_FLANK = b"ACGTACGTACGTACGTACGT"
+DP_PAIRS = {  # tests/test_dp.py's named inputs, as letters
+    "exact": (_DP_FLANK, _DP_FLANK),
+    "one_mismatch": (_DP_FLANK, b"ACGTACGTTCGTACGTACGT"),
+    "gap": (_DP_FLANK, b"ACGTACGTGTACGTACGT"),  # a 2 bp deletion
+    "n_run": (b"ACGTNNNNACGT", b"ACGTNNNNACGT"),
+    "no_alignment": (b"AAAA", b"TTTT"),
+    "iupac_same": (_DP_FLANK + b"WW" + _DP_FLANK, _DP_FLANK + b"WW" + _DP_FLANK),
+    "iupac_diff": (_DP_FLANK + b"WW" + _DP_FLANK, _DP_FLANK + b"RK" + _DP_FLANK),
+}
+# The JAX package's largest extension bucket (extend_pallas.M_COLS_BUCKETS[-1]):
+# its Pallas kernel sends a longer task to the host kernel; the port's
+# kernel takes any length.
+EXTEND_BUCKET_LIMIT = 10_240
+IUPAC_LETTERS = np.frombuffer(b"ACGTNRYSWKMBDHV", dtype=np.uint8)
+
+
+def dp_pairs() -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """``DP_PAIRS`` encoded."""
+    from pyani_plus_tpu_torch.genomes import encode_sequence
+
+    return {name: (encode_sequence(a), encode_sequence(b)) for name, (a, b) in DP_PAIRS.items()}
+
+
+def extension_fuzz_tasks(seed: int, count: int, max_len: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """tests/test_dp.py's extension fuzz: codes 0-4 in a, homology at 10%
+    substitutions in about 60% of the tasks, uneven lengths from 60."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for _ in range(count):
+        m = int(rng.integers(60, max_len))
+        n = int(rng.integers(60, max_len))
+        a = rng.integers(0, 5, m).astype(np.uint8)
+        b = rng.integers(0, 4, n).astype(np.uint8)
+        if rng.random() < 0.6:
+            span = min(m, n)
+            b[:span] = a[:span] % 4
+            mut = rng.random(span) < 0.1
+            b[:span][mut] = (b[:span][mut] + 1) % 4
+        tasks.append((a, b))
+    return tasks
+
+
+def extension_oversize_tasks() -> list[tuple[np.ndarray, np.ndarray]]:
+    """tests/test_dp.py's four tasks around the largest bucket: the first
+    and third longer than ``EXTEND_BUCKET_LIMIT``, 5% substitutions."""
+    rng = np.random.default_rng(7)
+    big = EXTEND_BUCKET_LIMIT + 64
+    tasks = []
+    for m, n in ((big, 400), (300, 280), (big + 32, big), (256, 300)):
+        a = rng.integers(0, 4, m).astype(np.uint8)
+        b = a[: min(m, n)].copy()
+        mut = rng.random(b.size) < 0.05
+        b[mut] = (b[mut] + 1) % 4
+        tasks.append((a, b[:n] if n <= b.size else b))
+    return tasks
+
+
+def band_dp_trials(seed: int = 12, count: int = 30) -> list[tuple[np.ndarray, np.ndarray, int]]:
+    """tests/test_native.py's band DP fuzz: (a, b, band) with 1-119 codes
+    each, b a prefix of a half the time, Ns sprinkled in a, bands 1-19."""
+    rng = np.random.default_rng(seed)
+    trials = []
+    for _ in range(count):
+        m = int(rng.integers(1, 120))
+        n = int(rng.integers(1, 120))
+        a = rng.integers(0, 4, m).astype(np.uint8)
+        b = a[:n].copy() if rng.random() < 0.5 and n <= m else rng.integers(0, 4, n).astype(np.uint8)
+        a[rng.random(m) < 0.05] = 4
+        trials.append((a, b, int(rng.integers(1, 20))))
+    return trials
+
+
+def extension_end_gap_tasks(seed: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Tails whose alignment opens or closes with a gap, as at the ends of
+    dnadiff's blocks: 1, 3, 10 and 61 extra codes (the last past the
+    band) before or after a shared 300-code core, in a or in b."""
+    rng = np.random.default_rng(seed)
+    core = rng.integers(0, 4, 300).astype(np.uint8)
+    tasks = []
+    for k in (1, 3, 10, 61):
+        extra = rng.integers(0, 4, k).astype(np.uint8)
+        head, tail = np.concatenate([extra, core]), np.concatenate([core, extra])
+        tasks += [(head, core), (core, head), (tail, core), (core, tail)]
+    return tasks
+
+
+def extension_edge_tasks(seed: int) -> dict[str, list[tuple[np.ndarray, np.ndarray]]]:
+    """Every unit edge input of the free-end extension, by group:
+    ``dp`` (``DP_PAIRS``, one-code tasks, N-only and IUPAC tasks),
+    ``fuzz`` (tests/test_dp.py's two fuzz sets), ``oversize``,
+    ``band`` (``band_dp_trials`` as band-60 tasks) and ``end_gaps``."""
+    from pyani_plus_tpu_torch.genomes import encode_sequence
+
+    rng = np.random.default_rng(seed)
+    one = [encode_sequence(x) for x in (b"A", b"C", b"N", b"W")]
+    dp = list(dp_pairs().values()) + [(x, y) for x in one for y in one]
+    dp += [(np.full(50, 4, np.uint8), np.full(50, 4, np.uint8)),  # N only
+           (np.full(40, 4, np.uint8), rng.integers(0, 4, 40).astype(np.uint8))]
+    for _ in range(6):  # IUPAC letters in both, a tenth of them changed in b
+        letters = IUPAC_LETTERS[rng.integers(0, 15, int(rng.integers(20, 200)))]
+        changed = letters.copy()
+        swap = rng.random(letters.size) < 0.1
+        changed[swap] = IUPAC_LETTERS[rng.integers(0, 15, int(swap.sum()))]
+        dp.append((encode_sequence(letters.tobytes()), encode_sequence(changed.tobytes())))
+    return {
+        "dp": dp,
+        "fuzz": extension_fuzz_tasks(23, 24, 1200) + extension_fuzz_tasks(41, 20, 1100),
+        "oversize": extension_oversize_tasks(),
+        "band": [(a, b) for a, b, _band in band_dp_trials()],
+        "end_gaps": extension_end_gap_tasks(seed + 1),
+    }
+
+
+SW_PAD_CODE = 5  # the JAX kernels' padding code: never matches anything
+SW_PACKED_ROWS = 16_360  # ops/sw.uses_packed_lanes: packed 16-bit lanes up to min(m, n) = 16,360
+
+
+def _sw_homolog(q: np.ndarray, width: int, rng: np.random.Generator) -> np.ndarray:
+    """A window of `width` codes holding `q` at 5% substitutions in its
+    middle, random codes around it."""
+    s = rng.integers(0, 4, width).astype(np.uint8)
+    start = (width - q.size) // 2
+    copy = q.copy()
+    mut = rng.random(q.size) < 0.05
+    copy[mut] = (copy[mut] + 1) % 4
+    s[start : start + q.size] = copy
+    return s
+
+
+def sw_score_parity_tasks() -> list[tuple[np.ndarray, np.ndarray]]:
+    """tests/test_dp.py's score parity set: 6 queries of 60 codes in
+    subjects of 90, every other one holding its query at 10% from 5."""
+    rng = np.random.default_rng(11)
+    qs = rng.integers(0, 4, (6, 60)).astype(np.uint8)
+    ss = rng.integers(0, 4, (6, 90)).astype(np.uint8)
+    for i in range(0, 6, 2):
+        ss[i, 5:65] = qs[i]
+        mut = rng.random(60) < 0.1
+        ss[i, 5:65][mut] = (ss[i, 5:65][mut] + 1) % 4
+    return list(zip(qs, ss))
+
+
+def sw_iupac_fuzz_tasks() -> list[tuple[np.ndarray, np.ndarray]]:
+    """tests/test_dp.py's IUPAC fuzz: 25 pairs of random letters from the
+    whole IUPAC alphabet."""
+    from pyani_plus_tpu_torch.genomes import encode_sequence
+
+    rng = np.random.default_rng(42)
+    tasks = []
+    for _ in range(25):
+        m = int(rng.integers(10, 120))
+        n = int(rng.integers(10, 160))
+        q = encode_sequence(IUPAC_LETTERS[rng.integers(0, 15, m)].tobytes())
+        s = encode_sequence(IUPAC_LETTERS[rng.integers(0, 15, n)].tobytes())
+        tasks.append((q, s))
+    return tasks
+
+
+def sw_trim_fuzz_tasks(seed: int = 7, count: int = 24) -> list[tuple[np.ndarray, np.ndarray]]:
+    """tests/test_dp.py's trim-equivalence fuzz (at its seed and count by
+    default): homology planted in about 70% of the tasks, unpadded."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for _ in range(count):
+        m = int(rng.integers(20, 90))
+        n = int(rng.integers(30, 140))
+        q = rng.integers(0, 5, m).astype(np.uint8)
+        s = rng.integers(0, 5, n).astype(np.uint8)
+        if rng.random() < 0.7:
+            ln = min(m, n) // 2
+            s[:ln] = q[:ln]
+        tasks.append((q, s))
+    return tasks
+
+
+def sw_padded(tasks: list[tuple[np.ndarray, np.ndarray]]) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The tasks as rows of one batch padded with ``SW_PAD_CODE`` to the
+    longest query and subject, as the JAX package's batch kernels take
+    them."""
+    m = max(q.size for q, _ in tasks)
+    n = max(s.size for _, s in tasks)
+    return [
+        (np.concatenate([q, np.full(m - q.size, SW_PAD_CODE, np.uint8)]),
+         np.concatenate([s, np.full(n - s.size, SW_PAD_CODE, np.uint8)]))
+        for q, s in tasks
+    ]  # fmt: skip
+
+
+def sw_pallas_tasks(seed: int = 5, count: int = 24) -> list[tuple[np.ndarray, np.ndarray]]:
+    """tests/test_anib.py's Pallas SW set (at its seed and count by
+    default): m <= 128, n <= 256, N codes in two of three tasks and
+    padding codes beside them, a mutated copy in every fourth."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for trial in range(count):
+        m = int(rng.integers(1, 129))
+        n = int(rng.integers(1, 257))
+        hi = 5 if trial % 3 else 4
+        q = rng.integers(0, hi, m).astype(np.uint8)
+        s = rng.integers(0, hi, n).astype(np.uint8)
+        if trial % 4 == 0 and n > m:
+            s[:m] = q
+            mut = rng.random(m) < 0.2
+            s[:m][mut] = (s[:m][mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        tasks.append((q, s))
+    return tasks
+
+
+# tests/test_anib.py's genome: 39,253 bp, 39 fragments of 1,020, the last
+# one a tail of 493
+FRAGMENT_GENOME_LENGTH = 39_253
+
+
+def sw_fragment_tasks(seed: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """ANIb's fragments at the edges: the tail fragment of a
+    ``FRAGMENT_GENOME_LENGTH`` genome in a window 300 columns wider, a
+    1,020-code fragment of N only, one of the padding code only, and a
+    1,020-code fragment in a window as wide as the width rule's edge."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, FRAGMENT_GENOME_LENGTH).astype(np.uint8)
+    tail = genome[(FRAGMENT_GENOME_LENGTH // 1020) * 1020 :]
+    frag = genome[:1020]
+    return [
+        (tail, _sw_homolog(tail, tail.size + 300, rng)),
+        (np.full(1020, 4, np.uint8), _sw_homolog(frag, 1320, rng)),
+        (np.full(1020, SW_PAD_CODE, np.uint8), _sw_homolog(frag, 1320, rng)),
+        (frag, _sw_homolog(frag, SW_PACKED_ROWS, rng)),
+    ]
+
+
+def sw_rule_edge_tasks(seed: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """A fragment of ``SW_PACKED_ROWS`` codes and one of a code more, each
+    in a window as wide: the last task of the packed 16-bit lanes and the
+    first of the 32-bit words (about 270 M cells each)."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for m in (SW_PACKED_ROWS, SW_PACKED_ROWS + 1):
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        tasks.append((q, _sw_homolog(q, m, rng)))
+    return tasks
+
+
+def sw_edge_tasks(seed: int, *, rule_edge: bool) -> dict[str, list[tuple[np.ndarray, np.ndarray]]]:
+    """Every unit edge input of the Smith-Waterman, by group; the width
+    rule's two large tasks only with `rule_edge`."""
+    groups = {
+        "dp": list(dp_pairs().values()),
+        "score_parity": sw_score_parity_tasks(),
+        "iupac": sw_iupac_fuzz_tasks(),
+        "trim": sw_trim_fuzz_tasks(),
+        "trim_padded": sw_padded(sw_trim_fuzz_tasks()),
+        "pallas": sw_pallas_tasks(),
+        "fragments": sw_fragment_tasks(seed),
+    }
+    if rule_edge:
+        groups["rule_edge"] = sw_rule_edge_tasks(seed + 1)
+    return groups
+
+
+def gram_edge_sets() -> dict[str, list[Sketch]]:
+    """tests/test_tiles_minhash_edges.py's sketches (k = 31, scaled =
+    1,000): two identical sketches, two disjoint ones, a sketch and its
+    half, and an empty sketch beside a full one."""
+
+    def sketch(hashes) -> Sketch:
+        return Sketch("x", 31, 1000, np.asarray(sorted(hashes), dtype=np.uint64))
+
+    full = sketch(range(100))
+    return {
+        "identical": [full, full],
+        "disjoint": [full, sketch(range(1000, 1100))],
+        "subset": [sketch(range(200)), full],
+        "empty": [sketch([]), sketch(range(50))],
+    }

@@ -7,10 +7,27 @@ scorer) and its device path (``=1``, the ``dp_jax`` scan on XLA's CPU
 backend). Rows must be equal: integers exact, floats equal. Genomes are
 synthetic (one ancestor, substitutions with indels, N runs and IUPAC
 letters) from a numpy seed.
+
+The counterpart of ``tests/test_anib.py`` too, case for case, on
+synthetic genomes in place of the viral fixtures (blastn's per-fragment
+rows and the reference's spot values stay with the fixtures):
+``test_fragment_counts_and_tail`` on a random genome of the fixture's
+39,253 bp, ``test_per_fragment_blast_parity`` as each fragment's best
+alignment equal between the packages, and
+``test_group_pooled_scoring_matches_per_pair`` on the host scorer. Held
+by the cases above: ``test_pair_summary_matches_doctest_values`` and
+``test_device_batched_scores_match_host`` by
+``test_compute_pair_matches_jax_host_path`` (the port's pair on both
+routes equal to the JAX host path's), ``test_device_pipeline_matches_host_path``
+by ``test_compute_matches_jax[2]`` (two groups a column through the
+lookahead pipeline, rows equal to the JAX host rows). Held by
+``tests/test_torch_sw.py::test_reference_matches_pallas_dp_jax_and_native[pallas]``
+on the same seeded tasks: ``test_pallas_sw_scores_match_host``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 
@@ -25,7 +42,13 @@ from pyani_plus_tpu.ops.seeds import SeedIndex
 from pyani_plus_tpu_torch import backend, methods, native
 from pyani_plus_tpu_torch.methods import anib
 from pyani_plus_tpu_torch.ops import _build
-from pyani_plus_tpu_torch.synthetic import write_genome_dir
+from pyani_plus_tpu_torch.ops.seeds import SeedIndex as PortSeedIndex
+from pyani_plus_tpu_torch.synthetic import (
+    FRAGMENT_GENOME_LENGTH,
+    random_sequence,
+    write_fasta,
+    write_genome_dir,
+)
 
 RATES = [0.02, 0.08, 0.15]
 
@@ -186,3 +209,43 @@ def test_registry_and_configuration() -> None:
     assert (anib.NAME, anib.PROGRAM, anib.FRAGSIZE) == (
         jax_anib.NAME, jax_anib.PROGRAM, jax_anib.FRAGSIZE
     )  # fmt: skip
+
+
+def test_fragment_counts_and_tail(tmp_path) -> None:
+    """The tail fragment is kept: ceil(39,253 / 1,020) = 39 fragments."""
+    seq = random_sequence(FRAGMENT_GENOME_LENGTH, np.random.default_rng(39))
+    genome = load_genome(write_fasta(tmp_path / "g.fna", "g", seq))
+    frags = anib.fragment_genome(genome, 1020)
+    expected = jax_anib.fragment_genome(genome, 1020)
+    assert len(frags) == len(expected) == 39
+    assert all(np.array_equal(a, b) for a, b in zip(frags, expected))
+    assert frags[-1].size == FRAGMENT_GENOME_LENGTH - 38 * 1020
+
+
+def test_per_fragment_blast_parity(genomes) -> None:
+    """Every fragment's best alignment (the blastn HSP's statistics) is
+    the JAX package's, field for field."""
+    query, subject = genomes[1], genomes[0]
+    codes = [rec.codes for rec in subject.records]
+    port_indexes = [PortSeedIndex(c) for c in codes]
+    jax_indexes = [SeedIndex(c) for c in codes]
+    found = 0
+    for i, frag in enumerate(anib.fragment_genome(query, 1020)):
+        got = anib.best_fragment_alignment(frag, codes, port_indexes)
+        want = jax_anib.best_fragment_alignment(frag, codes, jax_indexes)
+        assert (got is None) == (want is None), i
+        if got is not None:
+            assert dataclasses.astuple(got) == dataclasses.astuple(want), i
+            found += 1
+    assert found > 5
+
+
+def test_group_pooled_scoring_matches_per_pair(genomes, jax_rows, monkeypatch) -> None:
+    """Scoring tasks of three queries pooled, on the host scorer: the
+    unpooled rows, which are the JAX package's."""
+    monkeypatch.setenv("PYANI_TPU_ANIB_DEVICE", "0")
+    rows = {}
+    for group in ("3", "1"):
+        monkeypatch.setenv("PYANI_TPU_ANIB_GROUP", group)
+        rows[group] = _rows(anib, genomes)
+    assert rows["3"] == rows["1"] == jax_rows["0"]

@@ -6,6 +6,22 @@ PyTorch version); the JAX package runs its CPU production path, the
 native host kernel. The comparison dicts must be equal: integers exact,
 floats equal. Genomes are synthetic (one ancestor, substitutions with
 indels, N runs and IUPAC letters) from a numpy seed.
+
+The counterpart of ``tests/test_anim.py`` too, case for case:
+``test_mum_finding_basic`` and ``test_n_never_matches_in_mums`` through
+both packages' ``maximal_matches``; ``test_spot_value_rotated_pair`` and
+``test_filtered_alignment_blocks`` on a synthetic rotated pair
+(``synthetic.write_rotated_pair``) in place of the viral fixtures' (the
+reference's spot values and nucmer's block coordinates stay with the
+fixtures), the port's row and blocks equal to the JAX package's. Held
+elsewhere on synthetic genomes: ``test_matrices_vs_fixtures`` by
+``tests/test_torch_cli.py::test_cli_export_matches_jax[anim]`` (all nine
+cells of both CLIs' exports equal), ``test_self_vs_self_n_run_anomaly``
+by ``tests/test_torch_self_vs_self.py::test_self_vs_self_anim_n_run``,
+``test_bad_alignments_all_null`` by
+``tests/test_torch_bad_alignments_e2e.py``, and
+``test_multicontig_per_sequence_filtering`` by
+``tests/test_torch_coverage_semantics.py::test_multicontig_per_sequence_filtering``.
 """
 
 from __future__ import annotations
@@ -19,12 +35,14 @@ import torch
 
 import pyani_plus_tpu.methods.anim as jax_anim
 import pyani_plus_tpu.methods.dnadiff as jax_dnadiff
-from pyani_plus_tpu.genomes import load_genome
+import pyani_plus_tpu.ops.chaining as jax_chaining
+import pyani_plus_tpu.ops.suffix as jax_suffix
+from pyani_plus_tpu.genomes import encode_sequence, load_genome
 from pyani_plus_tpu.methods import method_names as jax_method_names
 from pyani_plus_tpu_torch import backend, methods
 from pyani_plus_tpu_torch.methods import anim, dnadiff
-from pyani_plus_tpu_torch.ops import _build, suffix
-from pyani_plus_tpu_torch.synthetic import write_genome_dir
+from pyani_plus_tpu_torch.ops import _build, chaining, suffix
+from pyani_plus_tpu_torch.synthetic import write_genome_dir, write_rotated_pair
 
 RATES = [0.02, 0.08, 0.15]
 
@@ -176,3 +194,52 @@ def test_registry_and_configuration() -> None:
     assert anim.configuration() == jax_anim.configuration()
     assert anim.configuration(mode="maxmatch") == jax_anim.configuration(mode="maxmatch")
     assert dnadiff.configuration() == jax_dnadiff.configuration()
+
+
+def _mums(ref: np.ndarray, qry: np.ndarray) -> list[list[int]]:
+    got = [x.tolist() for x in suffix.maximal_matches(ref, qry, min_len=10)]
+    assert got == [x.tolist() for x in jax_suffix.maximal_matches(ref, qry, min_len=10)]
+    return got
+
+
+def test_mum_finding_basic() -> None:
+    ref = encode_sequence(b"TTTTACGGATCCGATTACAGGTTTT")
+    qry = encode_sequence(b"CCCCACGGATCCGATTACAGGCCCC")
+    assert _mums(ref, qry) == [[4], [4], [17]]
+
+
+def test_n_never_matches_in_mums() -> None:
+    seq = encode_sequence(b"ACGGATCCGATTACAGGACGT" + b"N" * 30 + b"GATTACACGGATCCGATTAGG")
+    starts, _q, lengths = _mums(seq, seq.copy())
+    assert starts  # the self matches split at the N run: none spans it
+    for rs, ls in zip(starts, lengths):
+        assert (seq[rs : rs + ls] < 4).all()
+
+
+@pytest.fixture(scope="module")
+def rotated(tmp_path_factory) -> list:
+    paths = write_rotated_pair(tmp_path_factory.mktemp("rotated"), 30_000, 0.01, seed=21)
+    return [load_genome(p) for p in paths]
+
+
+def test_spot_value_rotated_pair(rotated) -> None:
+    query, subject = rotated
+    res = anim.compute_pair(query, subject)
+    assert res == jax_anim.compute_pair(query, subject)
+    assert 0.98 < res["identity"] < 1.0
+    assert 0.95 * query.length < res["aln_length"] <= query.length
+    assert res["sim_errors"] > 0
+
+
+def test_filtered_alignment_blocks(rotated) -> None:
+    """The rotated pair aligns in two blocks that meet at the rotation
+    point, the same in both packages: coordinates and error counts."""
+    query, subject = rotated
+
+    def coords(align, one_to_one) -> list[tuple[int, ...]]:
+        blocks = one_to_one(align(subject.records[0].codes, query.records[0].codes))
+        return sorted((b.ref_start + 1, b.ref_end, b.qry_start + 1, b.qry_end, b.errors) for b in blocks)
+
+    got = coords(anim.align_sequences, chaining.one_to_one)
+    assert got == coords(jax_anim.align_sequences, jax_chaining.one_to_one)
+    assert len(got) == 2

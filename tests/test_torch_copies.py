@@ -1,8 +1,15 @@
-"""The port's copies of the host-only methods are copies.
+"""The port's copies of the JAX package's modules are copies.
 
 fastANI, skani, ANIminimap2 and external-alignment run on the host in the
 JAX package, and the port keeps its own copy of every module they use,
-and of the skani debias simulation (``analysis/``, numpy only).
+and of the skani debias simulation (``analysis/``, numpy only). It also
+keeps verbatim copies of the store (``db/``), FASTA ingest
+(``genomes/``, ``utils/``), the reports (``report/``) and three host ops
+(``ops/chaining.py``, ``ops/dp.py``, ``ops/kmers.py``): the JAX package's
+unit tests of those modules (``test_db``, ``test_db_orm``,
+``test_classify``, ``test_plots_more``, ``test_genomes_ingest``,
+``test_utils``, and the DP and chaining cases) hold the port's copies
+too, as long as they stay copies.
 Each copy equals its original once ``pyani_plus_tpu`` is read as
 ``pyani_plus_tpu_torch``; the C++ sources are byte for byte the same. In
 ``native/__init__.py`` only the loaders differ (the port builds through
@@ -31,6 +38,16 @@ MODULES = [
     "methods/external_alignment.py",
     "analysis/__init__.py",
     "analysis/skani_debias_sim.py",
+    "db/__init__.py",
+    "genomes/__init__.py",
+    "utils/__init__.py",
+    "report/__init__.py",
+    "report/classify.py",
+    "report/export.py",
+    "report/plots.py",
+    "ops/chaining.py",
+    "ops/dp.py",
+    "ops/kmers.py",
 ]
 SOURCES = ["native/fastani.cpp", "native/mm2.cpp"]
 # native/__init__.py: the original's loaders (and its in-place build),

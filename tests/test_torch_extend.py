@@ -28,6 +28,7 @@ from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, OPEN
 from pyani_plus_tpu_torch.ops import _build
 from pyani_plus_tpu_torch.ops import extend as ext
 from pyani_plus_tpu_torch.ops.extend_host import extend_errors as port_extend_errors
+from pyani_plus_tpu_torch.synthetic import extension_fuzz_tasks
 
 IUPAC = np.frombuffer(b"ACGTNRYSWKMBDHV", dtype=np.uint8)
 
@@ -46,25 +47,6 @@ def _native(a: np.ndarray, b: np.ndarray) -> tuple[int, ...]:
         a, b, 60, True, MATCH, MISMATCH, OPEN, EXTEND, 600
     )
     return i, j, err, nid, gap
-
-
-def _fuzz_tasks(seed: int, count: int, max_len: int) -> list[tuple]:
-    """tests/test_dp.py's extension fuzz set: codes 0-4 in a, homology
-    with 10% substitutions in 60% of the tasks, uneven lengths."""
-    rng = np.random.default_rng(seed)
-    tasks = []
-    for _ in range(count):
-        m = int(rng.integers(60, max_len))
-        n = int(rng.integers(60, max_len))
-        a = rng.integers(0, 5, m).astype(np.uint8)
-        b = rng.integers(0, 4, n).astype(np.uint8)
-        if rng.random() < 0.6:
-            span = min(m, n)
-            b[:span] = a[:span] % 4
-            mut = rng.random(span) < 0.1
-            b[:span][mut] = (b[:span][mut] + 1) % 4
-        tasks.append((a, b))
-    return tasks
 
 
 def _iupac_tasks(seed: int, count: int) -> list[tuple]:
@@ -102,7 +84,7 @@ _EDGES = [
     (encode_sequence(b"RYKM" * 40), encode_sequence(b"RYKM" * 40)),
 ]
 CASES = {
-    "fuzz": lambda: _fuzz_tasks(41, 10, 900),
+    "fuzz": lambda: extension_fuzz_tasks(41, 10, 900),
     "iupac": lambda: _iupac_tasks(5, 6),
     "edges": lambda: list(_EDGES),
 }
@@ -130,7 +112,7 @@ def test_reference_long_task_matches_native() -> None:
     mut = rng.random(m) < 0.04
     b[mut] = (b[mut] + 1) % 4
     b[5000:5040] = 4
-    short = _fuzz_tasks(3, 2, 400)
+    short = extension_fuzz_tasks(3, 2, 400)
     tasks = [(a, b), *short]
     got = ext.batch_extend_reference(tasks)
     assert got[0][0] > 10_240  # the extension really ran that far
@@ -139,7 +121,7 @@ def test_reference_long_task_matches_native() -> None:
 
 
 def test_batch_extend_dispatch_cpu_and_errors() -> None:
-    tasks = _fuzz_tasks(11, 3, 300)
+    tasks = extension_fuzz_tasks(11, 3, 300)
     before = ext.LAUNCHES
     assert ext.batch_extend(tasks, "cpu") == ext.batch_extend_reference(tasks)
     assert ext.LAUNCHES == before  # the plain version launches nothing
@@ -211,7 +193,7 @@ def test_collect_restores_the_callers_order() -> None:
 
 
 def test_submit_collect_on_cpu_is_the_plain_version() -> None:
-    tasks = _fuzz_tasks(19, 4, 250)
+    tasks = extension_fuzz_tasks(19, 4, 250)
     state = ext.batch_extend_submit(tasks, "cpu")
     assert state.arrived is None and state.order is None
     assert ext.batch_extend_collect(state) == ext.batch_extend_reference(tasks)
@@ -357,7 +339,7 @@ def test_kernel_row_algorithm_matches_native(case: str, packed: bool) -> None:
 def test_host_oracle_copy_matches_jax_package() -> None:
     from pyani_plus_tpu.ops.extend import extend_errors
 
-    for a, b in _fuzz_tasks(23, 6, 500) + list(_EDGES):
+    for a, b in extension_fuzz_tasks(23, 6, 500) + list(_EDGES):
         assert port_extend_errors(a, b) == extend_errors(a, b)
 
 
@@ -366,7 +348,7 @@ def test_cuda_kernel_matches_reference() -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(3)
-    tasks = _fuzz_tasks(41, 20, 1100) + _iupac_tasks(5, 6) + list(_EDGES)
+    tasks = extension_fuzz_tasks(41, 20, 1100) + _iupac_tasks(5, 6) + list(_EDGES)
     # tests/test_dp.py's oversize case (past 10,240 rows), a 12,000-row
     # task, and one past 65,535 rows + columns (32-bit payload fields)
     for m, n in ((10_304, 400), (10_336, 10_304), (12_000, 12_000), (40_000, 40_000)):

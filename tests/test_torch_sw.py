@@ -20,44 +20,10 @@ import torch
 from pyani_plus_tpu.genomes import encode_sequence
 from pyani_plus_tpu_torch.ops import _build
 from pyani_plus_tpu_torch.ops import sw
+from pyani_plus_tpu_torch.synthetic import sw_pallas_tasks, sw_trim_fuzz_tasks
 
 IUPAC = np.frombuffer(b"ACGTNRYSWKMBDHV", dtype=np.uint8)
 M_COLS, N_COLS = 128, 256  # the Pallas kernel's interpret-mode geometry
-
-
-def _pallas_shapes(seed: int, count: int) -> list[tuple]:
-    """tests/test_anib.py's Pallas SW set: m <= 128, n <= 256, N codes
-    in two of three tasks, a mutated copy in every fourth."""
-    rng = np.random.default_rng(seed)
-    tasks = []
-    for trial in range(count):
-        m = int(rng.integers(1, M_COLS + 1))
-        n = int(rng.integers(1, N_COLS + 1))
-        hi = 5 if trial % 3 else 4
-        q = rng.integers(0, hi, m).astype(np.uint8)
-        s = rng.integers(0, hi, n).astype(np.uint8)
-        if trial % 4 == 0 and n > m:
-            s[:m] = q
-            mut = rng.random(m) < 0.2
-            s[:m][mut] = (s[:m][mut] + rng.integers(1, 4, int(mut.sum()))) % 4
-        tasks.append((q, s))
-    return tasks
-
-
-def _trim_shapes(seed: int, count: int) -> list[tuple]:
-    """tests/test_dp.py's trim-equivalence set: planted homology in 70%."""
-    rng = np.random.default_rng(seed)
-    tasks = []
-    for _ in range(count):
-        m = int(rng.integers(20, 90))
-        n = int(rng.integers(30, 140))
-        q = rng.integers(0, 5, m).astype(np.uint8)
-        s = rng.integers(0, 5, n).astype(np.uint8)
-        if rng.random() < 0.7:
-            ln = min(m, n) // 2
-            s[:ln] = q[:ln]
-        tasks.append((q, s))
-    return tasks
 
 
 def _iupac_shapes(seed: int, count: int) -> list[tuple]:
@@ -94,8 +60,8 @@ _EDGES = [
     (encode_sequence(b"ACGTACGT"), encode_sequence(b"ACGTACGTACGT")),
 ]
 CASES = {
-    "pallas": lambda: _pallas_shapes(5, 24),
-    "trim": lambda: _trim_shapes(7, 24),
+    "pallas": sw_pallas_tasks,
+    "trim": sw_trim_fuzz_tasks,
     "iupac": lambda: _iupac_shapes(11, 8),
     "edges": lambda: list(_EDGES),
 }
@@ -155,7 +121,7 @@ def test_reference_chunks_do_not_change_results() -> None:
     """The plain version pads chunks of similar windows; many tasks of
     mixed widths (several chunks) give the same rows one by one."""
     rng = np.random.default_rng(17)
-    tasks = _pallas_shapes(19, 40) + _trim_shapes(23, 30)
+    tasks = sw_pallas_tasks(19, 40) + sw_trim_fuzz_tasks(23, 30)
     order = rng.permutation(len(tasks))
     tasks = [tasks[i] for i in order]
     whole = sw.batch_sw_best_reference(tasks)
@@ -163,7 +129,7 @@ def test_reference_chunks_do_not_change_results() -> None:
 
 
 def test_batch_sw_best_dispatch_cpu_and_errors() -> None:
-    tasks = _trim_shapes(3, 4)
+    tasks = sw_trim_fuzz_tasks(3, 4)
     before = (sw.LAUNCHES, sw.TASKS)
     assert sw.batch_sw_best(tasks, "cpu") == sw.batch_sw_best_reference(tasks)
     assert (sw.LAUNCHES, sw.TASKS) == before  # the plain version launches nothing
