@@ -1,0 +1,12 @@
+"""``runner.genome_rows_s`` in the cells that hold their rate per layer
+(``runner.pairs_per_s``) and report ``peak_host_gib`` end to end: the
+same reading as ``metrics/runner.genome_rows_s.py``, which this file loads."""
+
+from pathlib import Path
+
+from anibench.run import load_file
+
+_SAME = load_file(Path(__file__).with_name("runner.genome_rows_s.py"), "anibench_metric_same_runner.genome_rows_s")
+read = _SAME.read
+if hasattr(_SAME, "install"):
+    install = _SAME.install

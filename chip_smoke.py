@@ -672,25 +672,26 @@ def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
     zeroed just before it; `host_env` sends the work to the native host
     kernels instead, for a share of the pairs. Returns (rows, kernel
     launches, wall seconds)."""
-    from pyani_plus_tpu_torch.utils import devmeter
+    from pyani_plus_tpu_torch.utils import spans
 
     db = work / f"{tag}.db"
     host_env = {**host_env, **HOST_SHARE} if host_env else {}
     os.environ.update(host_env)
     kernel.reset_counts()
     t0 = phase(f"{method} {tag}: {'native host' if host_env else 'CUDA kernel'}")
-    window = devmeter.reset()
+    window = spans.now()
     try:
-        runner.start_and_run_method(logger, db, fasta, method, create_db=True)
+        with spans.recording():
+            runner.start_and_run_method(logger, db, fasta, method, create_db=True)
     finally:
         for key in host_env:
             os.environ.pop(key, None)
     launches, tasks = kernel.LAUNCHES, kernel.TASKS
     seconds = time.monotonic() - t0
-    busy = devmeter.busy_fraction(window)
+    busy = spans.busy_fraction(window)
     done(tag, t0)
     print(f"   kernel launches {launches}, tasks through the kernel {tasks}")
-    print(f"   device busy share (devmeter, submit to sync of each launch): {busy:.4f}")
+    print(f"   device busy share (device spans, submit to result of each batch): {busy:.4f}")
     return comparison_rows(db), launches, seconds
 
 
@@ -774,34 +775,6 @@ def check_rows(method: str, rows: list[tuple], host: list[tuple], count: int,
             raise AssertionError(f"{method}: implausible identity in {row}")
     print(f"   {method}: {count} rows; the {host_count} pairs rerun on the host kernels "
           "are equal (ints exact, floats ==)")
-
-
-@contextlib.contextmanager
-def stage_timers(stages: list[tuple[object, str, str]]):
-    """Time calls of `owner.attr` under `label` for each stage, summed
-    over calls; yields {label: [seconds, calls]} and restores the
-    attributes after."""
-    totals: dict[str, list] = {}
-    saved = []
-    for owner, attr, label in stages:
-        real = getattr(owner, attr)
-        totals[label] = [0.0, 0]
-
-        def timed(*args, _real=real, _label=label, **kwargs):
-            t0 = time.monotonic()
-            try:
-                return _real(*args, **kwargs)
-            finally:
-                totals[_label][0] += time.monotonic() - t0
-                totals[_label][1] += 1
-
-        setattr(owner, attr, timed)
-        saved.append((owner, attr, real))
-    try:
-        yield totals
-    finally:
-        for owner, attr, real in reversed(saved):
-            setattr(owner, attr, real)
 
 
 def check_gram_fuzz(torch, minhash) -> None:
@@ -889,11 +862,9 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
     """Phase 7c: sourmash all-vs-all through the port's runner on 128
     genomes of 2.5 Mb, rows against the host containment; then the device
     sketch against the native host sketch on the same genomes."""
-    from pyani_plus_tpu_torch.db import Database, Run
     from pyani_plus_tpu_torch.genomes import load_genome
-    from pyani_plus_tpu_torch.methods import sourmash
-    from pyani_plus_tpu_torch.utils import devmeter
     from pyani_plus_tpu_torch.synthetic import write_clade_dir
+    from pyani_plus_tpu_torch.utils import spans
 
     rates = [float(r) for r in np.linspace(0.005, 0.05, CLADE_SIZE)]
     t0 = phase(f"write {CLADES} clades x {CLADE_SIZE} genomes of {CLADE_LENGTH} bp")
@@ -902,30 +873,22 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
 
     db = work / "sourmash.db"
     cache = work / "cache"
-    stages = [
-        (runner, "index_fasta_directory", "ingest: index and MD5"),
-        (runner, "_setup_run", "store: genome, configuration and run rows"),
-        (runner, "load_genome", "ingest: load genomes"),
-        (sourmash, "get_sketch", "host sketching (native, .npy cache)"),
-        (minhash, "intersection_matrix_device", "device Gram call"),
-        (minhash, "incidence", "  of which union and ids (host)"),
-        (minhash, "ani_from_counts", "numpy tail"),
-        (Database, "insert_comparisons", "store: comparisons"),
-        (Run, "cache_comparisons", "store: matrix cache"),
-    ]
     minhash.reset_counts()
+    spans.reset()
     t0 = phase(f"sourmash all-vs-all: {len(paths)} genomes through the port's runner")
-    window = devmeter.reset()
-    with stage_timers(stages) as totals:
+    window = spans.now()
+    with spans.recording():
         runner.start_and_run_method(logger, db, paths[0].parent, "sourmash",
                                     create_db=True, cache=cache)
     launches = minhash.LAUNCHES
-    busy = devmeter.busy_fraction(window)
+    busy = spans.busy_fraction(window)
     done("sourmash run", t0)
-    for label, (seconds, calls) in totals.items():
-        print(f"   stage {label}: {seconds:.3f} s ({calls} calls)")
+    for name, total in spans.totals().items():  # the runner's, sourmash's and the Gram's stages
+        print(f"   span {name}: {total.seconds:.3f} s, self {total.self_seconds:.3f} s "
+              f"({total.count} spans)")
+    print(f"   counters: {spans.counters()}")
     print(f"   device Gram calls on the card: {launches}; "
-          f"device busy share (devmeter): {busy:.4f}")
+          f"device busy share (device spans): {busy:.4f}")
 
     with sqlite3.connect(db) as conn:
         rows = conn.execute(

@@ -217,7 +217,7 @@ def bench_alignment_methods(rng, on_card: bool) -> dict:  # noqa: PLR0915
     and the extension kernel's lanes a second against the host kernel's."""
     from pyani_plus_tpu_torch.ops.extend import batch_extend
     from pyani_plus_tpu_torch.ops.extend_host import extend_errors
-    from pyani_plus_tpu_torch.utils import devmeter
+    from pyani_plus_tpu_torch.utils import spans
 
     out: dict = {}
     lanes = int(os.environ.get("BENCH_EXT_LANES", "512"))
@@ -277,7 +277,8 @@ def bench_alignment_methods(rng, on_card: bool) -> dict:  # noqa: PLR0915
     # against the cached subject in one compute() call, so the pair
     # threads and ANIb's group pipeline overlap as down a production
     # column. device_busy_fraction: the share of the column's wall clock
-    # with at least one launch in flight (utils/devmeter, an upper bound).
+    # with at least one batch on the card (utils/spans' device spans,
+    # recorded for the column alone; an upper bound).
     column = [(q, md5_r) for q in col_queries]
     n_pairs = len(column)
     for method, key in (
@@ -288,9 +289,10 @@ def bench_alignment_methods(rng, on_card: bool) -> dict:  # noqa: PLR0915
         busy: list[float] = []
 
         def run_once(m=method, busy=busy):
-            w0 = devmeter.reset()
-            dt = _time_method(m, genomes, *column)
-            busy.append(devmeter.busy_fraction(w0))
+            with spans.recording():
+                w0 = spans.now()
+                dt = _time_method(m, genomes, *column)
+                busy.append(spans.busy_fraction(w0))
             return dt
 
         med, lo, hi = _repeat(run_once)

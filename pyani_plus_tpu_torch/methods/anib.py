@@ -61,7 +61,7 @@ from pyani_plus_tpu_torch.ops.seeds import (
     pack_kmers,
 )
 from pyani_plus_tpu_torch.ops.sw import batch_sw_best_collect, batch_sw_best_submit
-from pyani_plus_tpu_torch.utils import devmeter, intra_pair_workers
+from pyani_plus_tpu_torch.utils import intra_pair_workers, spans
 
 __all__ = [
     "FRAGSIZE",
@@ -399,16 +399,16 @@ def _score_device_submit(pairs: list[Pair]):
 
     mesh = tiles.default_pair_mesh()
     devices = [backend.kernel_device()] if mesh is None else list(mesh.devices.flat)
-    t_submit = devmeter.now()
-    return batch_sw_best_submit(pairs, devices), t_submit
+    span = spans.begin("sw.device") if any(d.type == "cuda" for d in devices) else None
+    return batch_sw_best_submit(pairs, devices), span
 
 
 def _score_device_collect(state) -> tuple[list[int], list[tuple[int, int]]]:
     """Wait for a submitted batch: (scores, trims) per pair, where
     ``trims[i]`` is the winning (best_i, best_j) cell."""
-    parts, t_submit = state
+    parts, span = state
     out = batch_sw_best_collect(parts)
-    devmeter.record(t_submit)
+    spans.finish(span)
     return [row[0] for row in out], [(row[1], row[2]) for row in out]
 
 

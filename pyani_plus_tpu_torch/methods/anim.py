@@ -24,6 +24,13 @@ batch holds at least ``EXT_BATCH_MIN_CUDA`` tasks, and to the native host
 kernel otherwise (the CPU requested with ``PYANI_TPU_TORCH_DEVICE=cpu``,
 or a batch below ``PYANI_TPU_EXTEND_BATCH_MIN``). Both are exact to the integer, so the rows are the JAX
 package's rows.
+
+The stages carry spans (``utils/spans.py``), each with its ordered pair:
+``anim.pair`` over ``compute_pair``, and within it ``anim.seed`` and
+``anim.cluster`` on each strand's thread, ``anim.chain`` (chaining and gap
+fills), ``anim.extend`` (the extension tasks and their host part; B1's
+wait is ``extend.wait`` within it) and ``anim.filter`` (the 1-to-1 filter
+and the scoring).
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from pyani_plus_tpu_torch.ops.suffix import (
     mum_matches_indexed,
     seed_index_enabled,
 )
-from pyani_plus_tpu_torch.utils import intra_pair_workers
+from pyani_plus_tpu_torch.utils import intra_pair_workers, spans
 
 __all__ = [
     "MODE",
@@ -286,6 +293,7 @@ def align_sequences(
     unique = mode == "mum"
     qlen = qry.size
     use_index = seed_index_enabled()
+    caller = spans.current()  # the parent of the strand threads' spans
 
     def _strand(reverse: bool):
         if reverse:
@@ -296,22 +304,22 @@ def align_sequences(
             )
         else:
             q_codes = qry
-        if use_index and unique:
-            r, q, ln = mum_matches_indexed(
-                SEED_CACHE.sam_for(ref), ref, q_codes, min_match
-            )
-        elif use_index:
-            r, q, ln = max_matches_indexed(
-                SEED_CACHE.sam_for(ref), ref, q_codes, min_match
-            )
-        else:
-            r, q, ln = maximal_matches(
-                ref, q_codes, min_match, unique_ref=unique, unique_qry=unique
-            )
-        return q_codes, [
-            (reverse, r[idx], q[idx], ln[idx])
-            for idx in cluster_matches(r, q, ln)
-        ]
+        with spans.span("anim.seed", parent=caller):
+            if use_index and unique:
+                r, q, ln = mum_matches_indexed(
+                    SEED_CACHE.sam_for(ref), ref, q_codes, min_match
+                )
+            elif use_index:
+                r, q, ln = max_matches_indexed(
+                    SEED_CACHE.sam_for(ref), ref, q_codes, min_match
+                )
+            else:
+                r, q, ln = maximal_matches(
+                    ref, q_codes, min_match, unique_ref=unique, unique_qry=unique
+                )
+        with spans.span("anim.cluster", parent=caller):
+            found = cluster_matches(r, q, ln)
+        return q_codes, [(reverse, r[idx], q[idx], ln[idx]) for idx in found]
 
     strand_workers = min(2, intra_pair_workers())
     if strand_workers > 1:
@@ -323,33 +331,35 @@ def align_sequences(
     clusters = [cl for _codes, cls in per_strand for cl in cls]
 
     workers = intra_pair_workers()
-    if workers > 1 and len(clusters) > 4:
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            fills = list(
-                pool.map(
-                    lambda c: _chain_and_fill(
-                        ref, strand_matches[c[0]], c[1], c[2], c[3]
-                    ),
-                    clusters,
+    with spans.span("anim.chain"):
+        if workers > 1 and len(clusters) > 4:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                fills = list(
+                    pool.map(
+                        lambda c: _chain_and_fill(
+                            ref, strand_matches[c[0]], c[1], c[2], c[3]
+                        ),
+                        clusters,
+                    )
                 )
-            )
-    else:
-        fills = [
-            _chain_and_fill(ref, strand_matches[rev], r, q, ln)
-            for rev, r, q, ln in clusters
-        ]
+        else:
+            fills = [
+                _chain_and_fill(ref, strand_matches[rev], r, q, ln)
+                for rev, r, q, ln in clusters
+            ]
 
     # Outward extensions of every chained cluster, batched together so
     # that the kernel runs them all in one launch.
-    tasks: list[tuple[np.ndarray, np.ndarray]] = []
-    task_of: list[int | None] = []
-    for (reverse, _r, _q, _ln), fill in zip(clusters, fills):
-        if fill is None:
-            task_of.append(None)
-            continue
-        task_of.append(len(tasks))
-        tasks.extend(_extension_tasks(fill, ref, strand_matches[reverse]))
-    ext_results = _run_extensions(tasks)
+    with spans.span("anim.extend"):
+        tasks: list[tuple[np.ndarray, np.ndarray]] = []
+        task_of: list[int | None] = []
+        for (reverse, _r, _q, _ln), fill in zip(clusters, fills):
+            if fill is None:
+                task_of.append(None)
+                continue
+            task_of.append(len(tasks))
+            tasks.extend(_extension_tasks(fill, ref, strand_matches[reverse]))
+        ext_results = _run_extensions(tasks)
 
     alignments: list[Alignment] = []
     for (reverse, _r, _q, _ln), fill, base in zip(clusters, fills, task_of):
@@ -376,6 +386,11 @@ def align_sequences(
 
 def compute_pair(query: Genome, subject: Genome, mode: str = "mum") -> dict:
     """One directed comparison: subject is the nucmer reference."""
+    with spans.span("anim.pair", request=(query.md5, subject.md5)):
+        return _compare(query, subject, mode)
+
+
+def _compare(query: Genome, subject: Genome, mode: str) -> dict:
     all_blocks: list[Alignment] = []
     keys: list[tuple[int, int]] = []
     for si, s_rec in enumerate(subject.records):
@@ -383,13 +398,14 @@ def compute_pair(query: Genome, subject: Genome, mode: str = "mum") -> dict:
             blocks = align_sequences(s_rec.codes, q_rec.codes, mode=mode)
             all_blocks.extend(blocks)
             keys.extend([(si, qi)] * len(blocks))
-    # delta-filter -1 with per-sequence-per-axis chains (grouping keys)
-    kept = set(id(a) for a in one_to_one(all_blocks, keys))
-    per_seq: dict[tuple[int, int], list[Alignment]] = {}
-    for key, block in zip(keys, all_blocks):
-        if id(block) in kept:
-            per_seq.setdefault(key, []).append(block)
-    query_aligned, ref_aligned, identity, sim_errors = score_alignments(per_seq)
+    with spans.span("anim.filter"):
+        # delta-filter -1 with per-sequence-per-axis chains (grouping keys)
+        kept = set(id(a) for a in one_to_one(all_blocks, keys))
+        per_seq: dict[tuple[int, int], list[Alignment]] = {}
+        for key, block in zip(keys, all_blocks):
+            if id(block) in kept:
+                per_seq.setdefault(key, []).append(block)
+        query_aligned, ref_aligned, identity, sim_errors = score_alignments(per_seq)
     return {
         "identity": identity,
         "aln_length": query_aligned,

@@ -16,6 +16,11 @@ Semantics (validated against reference fixtures to 1 ulp):
 - aln_length / sim_errors / cov_subject are not defined for this method
 
 Defaults k=31, scaled=1000 (ref methods/sourmash.py:30-31).
+
+Each sketch computed on the host (a miss of the cache) is the span
+``sourmash.sketch`` and adds one to the counter ``sourmash.sketches``
+(``utils/spans.py``); a sketch read back from the cache is neither. The
+Gram's spans are ``gram.prepare`` and ``gram.device`` (``ops/minhash.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from pyani_plus_tpu_torch.ops.minhash import (
     containment_ani,
     sketch_genome,
 )
+from pyani_plus_tpu_torch.utils import spans
 
 __all__ = [
     "KMER_SIZE",
@@ -79,7 +85,9 @@ def get_sketch(genome, kmersize: int, scaled: int, cache=None) -> Sketch:
         if cache_file.is_file():
             hashes = np.load(cache_file)
             return Sketch(genome.md5, kmersize, scaled, hashes.astype(np.uint64))
-    sketch = sketch_genome(genome, kmersize, scaled)
+    with spans.span("sourmash.sketch"):
+        sketch = sketch_genome(genome, kmersize, scaled)
+    spans.count("sourmash.sketches")
     if cache is not None:
         cache_dir.mkdir(parents=True, exist_ok=True)
         np.save(cache_file, sketch.hashes)

@@ -14,8 +14,10 @@ the integer.
   staging buffer, copies it to the card in one transfer, launches the
   kernel and queues the copy of the results back, all on the calling
   thread's own stream and without waiting; collect waits for that
-  batch's event only. Pair threads therefore overlap their launches on
-  the card, and a caller can do host work between the two.
+  batch's event only (the span ``extend.wait``). Pair threads therefore
+  overlap their launches on the card, and a caller can do host work
+  between the two. A batch on the card is the span ``extend.device``
+  from its submit to its results on the host.
 - ``batch_extend_reference`` is the plain PyTorch version: (B, 128)
   int64 band states advanced one row at a time for all tasks together,
   with the I state closed by ``torch.cummax`` and a gather. It always
@@ -39,7 +41,7 @@ import torch
 from pyani_plus_tpu_torch.ops._build import load_library
 from pyani_plus_tpu_torch.ops._tasks import Task, check_packed
 from pyani_plus_tpu_torch.ops.extend_host import EXTEND, MATCH, MISMATCH, NEG, OPEN
-from pyani_plus_tpu_torch.utils import devmeter
+from pyani_plus_tpu_torch.utils import spans
 
 BAND = 60  # csrc/extend.cu is laid out for this band: 4 columns x 32 lanes
 WIDTH = 2 * BAND + 1  # 121 live band columns
@@ -197,7 +199,7 @@ class Submitted:
     out: torch.Tensor | list[Result]  # pinned (B, 5) int32, or CPU results
     order: np.ndarray | None  # launch position -> caller's index
     arrived: torch.cuda.Event | None
-    t_submit: float
+    span: spans.Span | None  # extend.device, from submit to the results
     keep: tuple = ()  # tensors the queued work still reads
 
 
@@ -220,15 +222,15 @@ def batch_extend_submit(
     """Start a batch of extensions: the kernel for a CUDA device (queued,
     not awaited), the plain version for the CPU (computed here)."""
     device = torch.device(device)
-    t_submit = devmeter.now()
     if device.type == "cpu":
         results = batch_extend_reference(tasks, stop_rows=stop_rows)
-        return Submitted(results, None, None, t_submit)
+        return Submitted(results, None, None, None)
     if device.type != "cuda":
         msg = f"no extension path for device {device}"
         raise ValueError(msg)
     if not tasks:
-        return Submitted([], None, None, t_submit)
+        return Submitted([], None, None, None)
+    span = spans.begin("extend.device")
     with _PACK_LOCK:
         staging, order = pack_tasks(tasks, pin_memory=True)
         out = torch.empty((len(tasks), 5), dtype=torch.int32, pin_memory=True)
@@ -239,16 +241,18 @@ def batch_extend_submit(
         out.copy_(result, non_blocking=True)
         arrived = torch.cuda.Event()
         arrived.record(stream)
-    return Submitted(out, order, arrived, t_submit, keep=(staging, on_card, result))
+    return Submitted(out, order, arrived, span, keep=(staging, on_card, result))
 
 
 def batch_extend_collect(state: Submitted) -> list[Result]:
     """Wait for a submitted batch (its own event, nothing device-wide)
     and return the results in the caller's task order."""
+    with spans.span("extend.wait"):
+        if state.arrived is not None:
+            state.arrived.synchronize()
     if state.arrived is None:
         return state.out  # type: ignore[return-value]
-    state.arrived.synchronize()
-    devmeter.record(state.t_submit)
+    spans.finish(state.span)
     rows = np.empty((len(state.order), 5), dtype=np.int32)
     rows[state.order] = state.out.numpy()
     state.keep = ()

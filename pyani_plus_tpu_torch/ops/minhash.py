@@ -36,6 +36,7 @@ from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,7 +46,7 @@ from pyani_plus_tpu_torch import backend
 from pyani_plus_tpu_torch.genomes import Genome
 from pyani_plus_tpu_torch.ops.kmers import canonical_kmer_hashes
 from pyani_plus_tpu_torch.ops.murmur3 import murmur64_words, signed64, to_uint64
-from pyani_plus_tpu_torch.utils import devmeter
+from pyani_plus_tpu_torch.utils import spans
 
 __all__ = [
     "DEFAULT_KMER",
@@ -258,7 +259,9 @@ def intersection_matrix_device(
     mesh="auto",
 ) -> np.ndarray:
     """All-pairs ``|A n B|`` by blocked membership products. Returns (N,
-    N) int64.
+    N) int64. The host's preparation is the span ``gram.prepare``, the
+    Gram from its submit to the counts on the host ``gram.device`` where
+    the mesh holds a card.
 
     ``mesh="auto"`` splits the counts over ``default_pair_mesh()`` (every
     card of a process that has several); ``mesh=None``, or a ``device``,
@@ -281,12 +284,13 @@ def intersection_matrix_device(
     n = len(sketches)
     if sum(s.hashes.size for s in sketches) == 0:
         return np.zeros((n, n), dtype=np.int64)
-    pts = incidence(sketches, block)
-    t_submit = devmeter.now()
-    out = gram(pts, n, block, mesh)
-    if any(d.type == "cuda" for d in mesh.devices.flat):
+    with spans.span("gram.prepare"):
+        pts = incidence(sketches, block)
+    on_card = any(d.type == "cuda" for d in mesh.devices.flat)
+    with spans.span("gram.device") if on_card else contextlib.nullcontext():
+        out = gram(pts, n, block, mesh)
+    if on_card:
         LAUNCHES += 1
-        devmeter.record(t_submit)
     return out
 
 

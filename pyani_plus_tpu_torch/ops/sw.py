@@ -38,7 +38,7 @@ import torch
 from pyani_plus_tpu_torch.ops._build import load_library
 from pyani_plus_tpu_torch.ops._tasks import Task, check_packed, pack_tasks
 from pyani_plus_tpu_torch.ops.dp import GAP_EXTEND, GAP_OPEN, NEG, PENALTY, REWARD
-from pyani_plus_tpu_torch.utils import devmeter
+from pyani_plus_tpu_torch.utils import spans
 
 __all__ = [
     "batch_sw_best",
@@ -154,9 +154,8 @@ def batch_sw_best_cuda(
     if not tasks:
         return []
     packed = [t.to(device) for t in pack_tasks(tasks)]
-    t_submit = devmeter.now()
-    out = sw_cuda(*packed).cpu()  # synchronises
-    devmeter.record(t_submit)
+    with spans.span("sw.device"):
+        out = sw_cuda(*packed).cpu()  # synchronises
     return [tuple(row) for row in out.tolist()]
 
 

@@ -10,16 +10,21 @@ launcher with the opt-in), a run joins the ``torch.distributed`` group
 (``parallel/distributed.py``), host 0's pending set is broadcast, each
 host computes its static share of the pair grid, and the rows merge
 through an all-gather into host 0's store. It differs in what reached JAX
-there: ``PYANI_TPU_PROFILE=<dir>`` writes a ``torch.profiler`` trace,
-and the progress bar needs ``rich``.
+there: ``PYANI_TPU_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
+the whole run with the program's spans in it, and the progress bar needs
+``rich``. The stages carry spans (``utils/spans.py``): ``runner.md5``,
+``runner.parse`` (and the counter ``runner.parses``), ``runner.genome_rows``,
+``runner.load``, ``runner.compute``, ``runner.store`` and ``runner.cache``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import signal
+from collections.abc import Callable
 from pathlib import Path
 from typing import Any
 
@@ -31,14 +36,15 @@ from pyani_plus_tpu_torch.genomes import Genome, load_genome
 from pyani_plus_tpu_torch.methods import CARD_METHODS, ComputeContext, get_method
 from pyani_plus_tpu_torch.parallel import distributed
 from pyani_plus_tpu_torch.parallel.tiles import owned_pairs
-from pyani_plus_tpu_torch.utils import check_fasta, file_md5sum
+from pyani_plus_tpu_torch.utils import check_fasta, file_md5sum, spans
 
 
 def index_fasta_directory(
     logger: logging.Logger, fasta: Path
 ) -> dict[str, Path]:
     """MD5-index a FASTA directory; error on duplicate genome content."""
-    filename_to_hash = {f: file_md5sum(f) for f in check_fasta(logger, fasta)}
+    with spans.span("runner.md5"):
+        filename_to_hash = {f: file_md5sum(f) for f in check_fasta(logger, fasta)}
     hash_to_filename: dict[str, Path] = {}
     for filename, md5 in filename_to_hash.items():
         if md5 in hash_to_filename:
@@ -51,6 +57,43 @@ def index_fasta_directory(
     return hash_to_filename
 
 
+# the profiler traces every thread: the pair and strand threads' spans too
+_ALL_THREADS = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+
+
+def _profiled(run: Callable[..., int]) -> Callable[..., int]:
+    """Under ``PYANI_TPU_PROFILE=<dir>``, the whole of ``run`` in one
+    ``torch.profiler`` session (the card's kernels too, where there is a
+    card), with the program's spans recorded as ranges of the same trace
+    inside a range named after ``run``, written to
+    ``<dir>/trace-<pid>.json`` at its end. Inside a session that is
+    already open (``resume_run`` within ``start_and_run_method``), and
+    without the variable, ``run`` alone."""
+
+    @functools.wraps(run)
+    def profiled(logger: logging.Logger, *args: Any, **kwargs: Any) -> int:
+        profile_dir = os.environ.get("PYANI_TPU_PROFILE")
+        if not profile_dir or spans.profiling():
+            return run(logger, *args, **kwargs)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if backend.cards():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with (
+            spans.recording(),
+            torch.profiler.profile(activities=activities, experimental_config=_ALL_THREADS) as prof,
+            torch.profiler.record_function(run.__name__),
+        ):
+            run_id = run(logger, *args, **kwargs)
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        trace = Path(profile_dir) / f"trace-{os.getpid()}.json"
+        prof.export_chrome_trace(str(trace))
+        logger.info("Wrote profiler trace to %s", trace)
+        return run_id
+
+    return profiled
+
+
+@_profiled
 def start_and_run_method(  # noqa: PLR0913
     logger: logging.Logger,
     database: Path | str,
@@ -122,28 +165,40 @@ def _setup_run(  # noqa: PLR0913
     cmdline: str,
     method_name: str,
 ) -> Run:
-    configuration = db.get_or_create_configuration(
-        config["method"],
-        config["program"],
-        config["version"],
-        fragsize=config.get("fragsize"),
-        mode=config.get("mode"),
-        kmersize=config.get("kmersize"),
-        minmatch=config.get("minmatch"),
-        extra=config.get("extra"),
-    )
+    with spans.span("runner.genome_rows"):
+        configuration = db.get_or_create_configuration(
+            config["method"],
+            config["program"],
+            config["version"],
+            fragsize=config.get("fragsize"),
+            mode=config.get("mode"),
+            kmersize=config.get("kmersize"),
+            minmatch=config.get("minmatch"),
+            extra=config.get("extra"),
+        )
     for md5, filename in hash_to_filename.items():
-        genome = load_genome(filename, md5)
-        db.add_genome(md5, str(filename), genome.length, genome.description)
+        genome = _parse(filename, md5)
+        with spans.span("runner.genome_rows"):
+            db.add_genome(md5, str(filename), genome.length, genome.description)
     n = len(hash_to_filename)
-    return db.add_run(
-        configuration.configuration_id,
-        cmdline,
-        str(fasta),
-        "Initialising",
-        name or f"{n} genomes using {method_name}",
-        [(md5, filename.name) for md5, filename in hash_to_filename.items()],
-    )
+    with spans.span("runner.genome_rows"):
+        return db.add_run(
+            configuration.configuration_id,
+            cmdline,
+            str(fasta),
+            "Initialising",
+            name or f"{n} genomes using {method_name}",
+            [(md5, filename.name) for md5, filename in hash_to_filename.items()],
+        )
+
+
+def _parse(filename: Path, md5: str) -> Genome:
+    """One FASTA parse, as the span ``runner.parse`` and the counter
+    ``runner.parses``."""
+    with spans.span("runner.parse"):
+        genome = load_genome(filename, md5)
+    spans.count("runner.parses")
+    return genome
 
 
 @contextlib.contextmanager
@@ -202,23 +257,13 @@ def _progress(description: str, total: int):
     return progress, lambda n: progress.advance(task_id, n)
 
 
-def _compute(logger: logging.Logger, method: Any, ctx: ComputeContext) -> list[dict]:
-    """Run the method; under PYANI_TPU_PROFILE=<dir>, inside torch.profiler."""
-    profile_dir = os.environ.get("PYANI_TPU_PROFILE")
-    if not profile_dir:
+def _compute(method: Any, ctx: ComputeContext) -> list[dict]:
+    """Run the method."""
+    with spans.span("runner.compute"):
         return method.compute(ctx)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if backend.cards():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        rows = method.compute(ctx)
-    Path(profile_dir).mkdir(parents=True, exist_ok=True)
-    trace = Path(profile_dir) / f"trace-{os.getpid()}.json"
-    prof.export_chrome_trace(str(trace))
-    logger.info("Wrote profiler trace to %s", trace)
-    return rows
 
 
+@_profiled
 def resume_run(  # noqa: PLR0913, C901
     logger: logging.Logger,
     db: Database,
@@ -318,13 +363,15 @@ def resume_run(  # noqa: PLR0913, C901
         ctx = None
         try:
             run.set_status("Running")
-            genomes: dict[str, Genome] = {
-                md5: load_genome(hash_to_filename[md5], md5) for md5 in hashes
-            }
+            with spans.span("runner.load"):
+                genomes: dict[str, Genome] = {
+                    md5: _parse(hash_to_filename[md5], md5) for md5 in hashes
+                }
 
             def flush(rows: list[dict]) -> None:
                 # Incremental persist: INSERT OR IGNORE makes repeats harmless
-                db.insert_comparisons(rows, configuration_id=run.configuration_id)
+                with spans.span("runner.store"):
+                    db.insert_comparisons(rows, configuration_id=run.configuration_id)
                 logger.debug("Flushed %d comparisons", len(rows))
 
             progress, advance = _progress(
@@ -343,7 +390,7 @@ def resume_run(  # noqa: PLR0913, C901
                 flush=flush,
             )
             with progress:
-                rows = _compute(logger, method, ctx)
+                rows = _compute(method, ctx)
         except KeyboardInterrupt:
             if not collective:
                 logger.error("Interrupted; marking run as 'Worker interrupted'")
@@ -378,7 +425,8 @@ def resume_run(  # noqa: PLR0913, C901
             interrupted = True
     with _defer_interrupts(logger):
         if rows:
-            db.insert_comparisons(rows, configuration_id=run.configuration_id)
+            with spans.span("runner.store"):
+                db.insert_comparisons(rows, configuration_id=run.configuration_id)
         if interrupted:
             run.set_status("Worker interrupted")
             logger.error("Run %d interrupted; partial results saved", run.run_id)
@@ -402,7 +450,8 @@ def resume_run(  # noqa: PLR0913, C901
                 " after compute -- method returned incomplete results"
             )
             log_sys_exit(logger, msg)
-        run.cache_comparisons()
-        run.set_status("Done")
+        with spans.span("runner.cache"):
+            run.cache_comparisons()
+            run.set_status("Done")
         logger.info("Run %d complete: %d comparisons", run.run_id, final)
         return run.run_id

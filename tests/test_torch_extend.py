@@ -185,7 +185,7 @@ def test_collect_restores_the_callers_order() -> None:
     order = np.array([2, 0, 3, 1])
     out = torch.tensor([[p, 10 * p, 0, 0, p] for p in range(4)], dtype=torch.int32)
     event = _FakeEvent()
-    state = ext.Submitted(out, order, event, 0.0, keep=(out,))
+    state = ext.Submitted(out, order, event, None, keep=(out,))
     got = ext.batch_extend_collect(state)
     assert event.waited == 1 and state.keep == ()
     assert got == [(1, 10, 0, 0, 1), (3, 30, 0, 0, 3), (0, 0, 0, 0, 0), (2, 20, 0, 0, 2)]
