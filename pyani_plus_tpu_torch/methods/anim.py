@@ -28,9 +28,10 @@ package's rows.
 The stages carry spans (``utils/spans.py``), each with its ordered pair:
 ``anim.pair`` over ``compute_pair``, and within it ``anim.seed`` and
 ``anim.cluster`` on each strand's thread, ``anim.chain`` (chaining and gap
-fills), ``anim.extend`` (the extension tasks and their host part; B1's
-wait is ``extend.wait`` within it) and ``anim.filter`` (the 1-to-1 filter
-and the scoring).
+fills, one native call a cluster, with the counter ``anim.native_gaps`` of
+the gaps it filled), ``anim.extend`` (the extension tasks and their host
+part; B1's wait is ``extend.wait`` within it) and ``anim.filter`` (the
+1-to-1 filter and the scoring).
 """
 
 from __future__ import annotations
@@ -49,7 +50,14 @@ from pyani_plus_tpu_torch.ops.extend import (
     batch_extend_collect,
     batch_extend_submit,
 )
-from pyani_plus_tpu_torch.ops.extend_host import extend_errors, gap_errors
+from pyani_plus_tpu_torch.ops.extend_host import (
+    EXTEND,
+    MATCH,
+    MISMATCH,
+    OPEN,
+    extend_errors,
+    gap_errors,
+)
 from pyani_plus_tpu_torch.ops.suffix import (
     SEED_CACHE,
     max_matches_indexed,
@@ -138,8 +146,18 @@ def _chain_and_fill(
 
     Returns (errors, nonid, gapcols, rs, qs, prev_re, prev_qe); the
     outward extensions happen separately so they can batch onto the
-    device.
+    device. One native call does it all outside the interpreter lock
+    (``native/band.cpp``: ``chain_and_fill``), counted by the gaps it
+    filled (``anim.native_gaps``); the Python below is its no-compiler
+    fallback and parity oracle.
     """
+    done = native.chain_and_fill_native(
+        ref, qry, r, q, ln, MATCH, MISMATCH, OPEN, EXTEND
+    )
+    if done is not None:
+        fill, gaps = done
+        spans.count("anim.native_gaps", gaps)
+        return fill
     chain = _consistent_chain(r, q, ln)
     if not chain:
         return None

@@ -2,18 +2,20 @@
 
 The card owns the batched scoring math; these cover the host stages of
 the methods: sketch hashing (``sketch.cpp``), suffix automaton seeding
-(``suffix.cpp``), clustering and chain DPs (``chain.cpp``), the banded
-affine DP (``band.cpp``), the local alignment score and stats DPs
-(``align.cpp``), the seed join (``seedjoin.cpp``), minimap2's sketch,
-chain and backtrack (``mm2.cpp``, ANIminimap2) and fastANI's winnowing
-and fragment mapping (``fastani.cpp``). The wrappers of the last two
-are copied from the JAX package's ``native/__init__.py`` unchanged; only
-their loaders differ. Each library is built with g++ on first use through
-``ops/_build.py`` (source hash in the file name, written under a private
-name and renamed, one lock held across build and load), so concurrent
-threads and processes all get the finished library. Absence of a
-compiler degrades gracefully to the numpy implementations: every
-wrapper then returns ``None`` (or ``False``).
+(``suffix.cpp``), clustering and the delta-filter chain DP
+(``chain.cpp``), the banded affine DP with ANIm's consistent anchor
+chain and its per-cluster chain and gap fills (``band.cpp``), the local
+alignment score and stats DPs (``align.cpp``), the seed join
+(``seedjoin.cpp``), minimap2's sketch, chain and backtrack (``mm2.cpp``,
+ANIminimap2) and fastANI's winnowing and fragment mapping
+(``fastani.cpp``). The wrappers of the last two are copied from the JAX
+package's ``native/__init__.py`` unchanged; only their loaders differ.
+Each library is built with g++ on first use through ``ops/_build.py``
+(source hash in the file name, written under a private name and
+renamed, one lock held across build and load), so concurrent threads
+and processes all get the finished library. Absence of a compiler
+degrades gracefully to the numpy implementations: every wrapper then
+returns ``None`` (or ``False``).
 """
 
 from __future__ import annotations
@@ -485,6 +487,26 @@ def _bind_band(lib) -> None:
         ctypes.c_int,
         ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64),
+    ]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.anchor_chain_dp.restype = None
+    lib.anchor_chain_dp.argtypes = [
+        i64p, i64p, i64p, ctypes.c_int64, f64p, i64p,
+    ]
+    lib.chain_and_fill.restype = ctypes.c_int64
+    lib.chain_and_fill.argtypes = [
+        i64p, i64p, i64p,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        i64p,
     ]
 
 
@@ -966,10 +988,6 @@ def _bind_chain(lib) -> None:
     lib.chain_dp.argtypes = [
         i64p, i64p, f64p, i64p, ctypes.c_int64, f64p, i64p,
     ]
-    lib.anchor_chain_dp.restype = None
-    lib.anchor_chain_dp.argtypes = [
-        i64p, i64p, i64p, ctypes.c_int64, f64p, i64p,
-    ]
 
 
 def _load_chain():
@@ -1034,7 +1052,7 @@ def anchor_chain_dp_native(
     r: np.ndarray, q: np.ndarray, length: np.ndarray
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Consistent anchor chain DP -> (best, prev), or None."""
-    lib = _load_chain()
+    lib = _load_band()
     if lib is None:
         return None
     r = np.ascontiguousarray(r, dtype=np.int64)
@@ -1049,3 +1067,42 @@ def anchor_chain_dp_native(
         _i64(prev),
     )
     return best, prev
+
+
+def chain_and_fill_native(  # noqa: PLR0913
+    ref: np.ndarray,
+    qry: np.ndarray,
+    r: np.ndarray,
+    q: np.ndarray,
+    length: np.ndarray,
+    match: int,
+    mismatch: int,
+    gap_open: int,
+    gap_extend: int,
+):
+    """One cluster's consistent chain and gap fills in one call ->
+    (fill, gaps), or None if unavailable.
+
+    ``fill`` is ANIm's (errors, nonid, gapcols, rs, qs, prev_re, prev_qe),
+    or None for a cluster without anchors; ``gaps`` counts the gaps filled.
+    The library call holds no interpreter lock, so pair threads fill their
+    clusters at the same time.
+    """
+    lib = _load_band()
+    if lib is None:
+        return None
+    ref = np.ascontiguousarray(ref, dtype=np.uint8)
+    qry = np.ascontiguousarray(qry, dtype=np.uint8)
+    r = np.ascontiguousarray(r, dtype=np.int64)
+    q = np.ascontiguousarray(q, dtype=np.int64)
+    length = np.ascontiguousarray(length, dtype=np.int64)
+    out = np.zeros(7, dtype=np.int64)
+    gaps = lib.chain_and_fill(
+        _i64(r), _i64(q), _i64(length), r.size,
+        ref.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), ref.size,
+        qry.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), qry.size,
+        match, mismatch, gap_open, gap_extend, _i64(out),
+    )
+    if gaps < 0:
+        return None, 0
+    return tuple(int(v) for v in out), gaps

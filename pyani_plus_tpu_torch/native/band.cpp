@@ -1,4 +1,6 @@
-// Native banded anchored DP (gap fill + free-end extension for ANIm).
+// Native banded anchored DP (gap fill + free-end extension for ANIm),
+// and ANIm's per-cluster consistent chain with its gap fills in one call
+// (chain_and_fill, below).
 //
 // Affine-gap (Gotoh) generalisation of the linear model: a gap run of
 // length L costs open + extend*(L-1), so open == extend reduces to the
@@ -27,6 +29,7 @@
 //
 // Build: g++ -O3 -shared -fPIC band.cpp -o libband.so
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <vector>
@@ -241,6 +244,115 @@ void band_affine(const uint8_t *a, int64_t m, const uint8_t *b, int64_t n,
     out[4] = (m > n ? m : n);
     out[5] = (m > n ? m - n : n - m);
   }
+}
+
+// Per-cluster consistent anchor chain (methods/anim._consistent_chain):
+// anchors pre-sorted by r (stable); both axes non-decreasing with ends
+// also non-decreasing; weight = total anchor length.
+void anchor_chain_dp(const int64_t *r, const int64_t *q, const int64_t *l,
+                     int64_t n, double *best, int64_t *prev) {
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t ri = r[i], qi = q[i], li = l[i];
+    best[i] = (double)li;
+    prev[i] = -1;
+    for (int64_t j = 0; j < i; j++) {
+      if (r[j] <= ri && q[j] <= qi && r[j] + l[j] <= ri + li &&
+          q[j] + l[j] <= qi + li) {
+        const double cand = best[j] + (double)li;
+        if (cand > best[i]) {
+          best[i] = cand;
+          prev[i] = j;
+        }
+      }
+    }
+  }
+}
+
+// One cluster's consistent chain and the end-anchored fills of the gaps
+// between its anchors (methods/anim._chain_and_fill), statement for
+// statement, so that the results are bit-identical to the Python body,
+// which stays as the no-compiler fallback and parity oracle:
+//   - the anchors sorted by r, stably (np.argsort(kind="stable"));
+//   - anchor_chain_dp, then the first maximum of best (np.argmax) and the
+//     walk back along prev;
+//   - each later chain anchor trimmed by its overlap with the previous
+//     coverage, and dropped without moving the frontier where the trim
+//     reaches its length;
+//   - each gap as ops/extend_host.gap_errors fills it: an empty side
+//     costs the other side's length in each counter, else band_affine
+//     end-anchored in the band max(20, |a - b| + 20), clamped to
+//     max(a, b).
+// Coordinates are non-negative; a gap's ends are clipped to the sequence
+// as a numpy slice clips them. out[7] = {errors, nonid, gapcols, rs, qs,
+// prev_re, prev_qe}. Returns the number of gaps filled, or -1 for a
+// cluster with no anchor (no chain; out untouched).
+int64_t chain_and_fill(const int64_t *r, const int64_t *q, const int64_t *l,
+                       int64_t n, const uint8_t *ref, int64_t ref_size,
+                       const uint8_t *qry, int64_t qry_size, int match,
+                       int mismatch, int open_, int extend, int64_t *out) {
+  if (n <= 0) return -1;
+  std::vector<int64_t> order((size_t)n);
+  for (int64_t i = 0; i < n; i++) order[i] = i;
+  std::stable_sort(order.begin(), order.end(),
+                   [r](int64_t x, int64_t y) { return r[x] < r[y]; });
+  std::vector<int64_t> sr((size_t)n), sq((size_t)n), sl((size_t)n),
+      prev((size_t)n);
+  std::vector<double> best((size_t)n);
+  for (int64_t i = 0; i < n; i++) {
+    sr[i] = r[order[i]];
+    sq[i] = q[order[i]];
+    sl[i] = l[order[i]];
+  }
+  anchor_chain_dp(sr.data(), sq.data(), sl.data(), n, best.data(),
+                  prev.data());
+  int64_t end = 0;
+  for (int64_t i = 1; i < n; i++)
+    if (best[i] > best[end]) end = i;
+  std::vector<int64_t> chain;
+  for (; end != -1; end = prev[end]) chain.push_back(end);
+  std::reverse(chain.begin(), chain.end());
+
+  auto clip = [](int64_t v, int64_t size) { return v < size ? v : size; };
+  int64_t errors = 0, nonid = 0, gapcols = 0, gaps = 0;
+  const int64_t rs = sr[chain[0]], qs = sq[chain[0]];
+  int64_t prev_re = rs + sl[chain[0]], prev_qe = qs + sl[chain[0]];
+  for (size_t c = 1; c < chain.size(); c++) {
+    const int64_t ri = sr[chain[c]], qi = sq[chain[c]], li = sl[chain[c]];
+    int64_t trim = prev_re - ri;
+    if (prev_qe - qi > trim) trim = prev_qe - qi;
+    if (trim < 0) trim = 0;
+    if (trim >= li) continue;  // inside the previous coverage: dropped
+    const int64_t a0 = clip(prev_re, ref_size), a1 = clip(ri + trim, ref_size);
+    const int64_t b0 = clip(prev_qe, qry_size), b1 = clip(qi + trim, qry_size);
+    const int64_t m = a1 > a0 ? a1 - a0 : 0, k = b1 > b0 ? b1 - b0 : 0;
+    gaps++;
+    if (m == 0 || k == 0) {
+      const int64_t side = m + k;  // the other side's length
+      errors += side;
+      nonid += side;
+      gapcols += side;
+    } else {
+      int64_t band = (m > k ? m - k : k - m) + 20;
+      const int64_t longer = m > k ? m : k;
+      if (band > longer) band = longer;
+      int64_t res[6];
+      band_affine(ref + a0, m, qry + b0, k, band, 0, match, mismatch, open_,
+                  extend, 0, res);
+      errors += res[3];
+      nonid += res[4];
+      gapcols += res[5];
+    }
+    prev_re = ri + li;
+    prev_qe = qi + li;
+  }
+  out[0] = errors;
+  out[1] = nonid;
+  out[2] = gapcols;
+  out[3] = rs;
+  out[4] = qs;
+  out[5] = prev_re;
+  out[6] = prev_qe;
+  return gaps;
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 // Native chaining hot loops for the nucmer replacement
-// (ops/chaining.py): mgaps-style cluster union-find, delta-filter
-// chain DP, and the per-cluster consistent anchor chain.  Each mirrors
-// its Python reference implementation statement-for-statement --
-// including iteration order, strict-inequality tie rules, and
-// float64 arithmetic -- so results are bit-identical; the Python
-// versions remain as the no-compiler fallback and parity oracle.
+// (ops/chaining.py): mgaps-style cluster union-find and the delta-filter
+// chain DP; ANIm's per-cluster consistent anchor chain lies in band.cpp,
+// beside the gap fills it feeds.  Each mirrors its Python reference
+// implementation statement-for-statement -- including iteration order,
+// strict-inequality tie rules, and float64 arithmetic -- so results are
+// bit-identical; the Python versions remain as the no-compiler fallback
+// and parity oracle.
 //
 // Build: g++ -O3 -shared -fPIC chain.cpp -o libchain.so
 
@@ -76,28 +77,6 @@ void chain_dp(const int64_t *starts, const int64_t *ends,
       const int64_t j = order[k];
       if (starts[j] <= starts[i] && ends[j] <= ends[i]) {
         const double cand = best[j] + weights[i];
-        if (cand > best[i]) {
-          best[i] = cand;
-          prev[i] = j;
-        }
-      }
-    }
-  }
-}
-
-// Per-cluster consistent anchor chain (methods/anim._consistent_chain):
-// anchors pre-sorted by r (stable); both axes non-decreasing with ends
-// also non-decreasing; weight = total anchor length.
-void anchor_chain_dp(const int64_t *r, const int64_t *q, const int64_t *l,
-                     int64_t n, double *best, int64_t *prev) {
-  for (int64_t i = 0; i < n; i++) {
-    const int64_t ri = r[i], qi = q[i], li = l[i];
-    best[i] = (double)li;
-    prev[i] = -1;
-    for (int64_t j = 0; j < i; j++) {
-      if (r[j] <= ri && q[j] <= qi && r[j] + l[j] <= ri + li &&
-          q[j] + l[j] <= qi + li) {
-        const double cand = best[j] + (double)li;
         if (cand > best[i]) {
           best[i] = cand;
           prev[i] = j;

@@ -82,7 +82,7 @@ NAMES = frozenset((
     "runner.compute", "runner.store", "runner.cache",
     # methods/anim.py, ops/extend.py
     "anim.pair", "anim.seed", "anim.cluster", "anim.chain", "anim.extend", "anim.filter",
-    "extend.wait",
+    "anim.native_gaps", "extend.wait",
     # methods/sourmash.py, ops/minhash.py
     "sourmash.sketch", "sourmash.sketches", "gram.prepare",
 ))  # fmt: skip

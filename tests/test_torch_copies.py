@@ -15,7 +15,9 @@ Each copy equals its original once ``pyani_plus_tpu`` is read as
 ``native/__init__.py`` only the loaders differ (the port builds through
 ``ops/_build.load_host_library``): every other function and class there
 equals the original, and each ``_bind_<name>`` sets the argument types
-that the original ``_load_<name>`` sets.
+that the original ``_load_<name>`` sets, but for the port's one addition:
+``chain_and_fill_native``, whose library, ``band``, also took over the
+consistent anchor chain DP from ``chain``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,12 @@ LOADERS = {
     "_load_fastani": "_bind_fastani",
     "_load_chain": "_bind_chain",
 }
+# The port's own wrapper: ANIm's per-cluster chain and gap fills in one
+# call (native/band.cpp's chain_and_fill), which the JAX package lacks.
+# The consistent anchor chain DP it runs moved with it from the chain
+# library to the band library: its binding and its wrapper's loader.
+PORT_ONLY = {"chain_and_fill_native"}
+MOVED = "anchor_chain_dp"
 
 
 def _as_port(text: str) -> str:
@@ -84,19 +92,43 @@ def _definitions(path: Path) -> dict[str, ast.AST]:
     return {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
 
 
+def _binds(node: ast.AST, symbol: str) -> bool:
+    return f"lib.{symbol}." in ast.unparse(node)
+
+
 def test_native_wrappers_are_copies_and_only_the_loaders_differ() -> None:
     jax, port = (_definitions(pkg / "native" / "__init__.py") for pkg in (JAX, PORT))
     assert set(jax) - set(port) == {"_build"}
-    assert set(port) - set(jax) == {"_bound", *filter(None, LOADERS.values())}
+    assert set(port) - set(jax) == {"_bound", *filter(None, LOADERS.values()), *PORT_ONLY}
     for name in sorted(set(jax) & set(port) - set(LOADERS)):
+        if name == f"{MOVED}_native":  # the same wrapper on the band library
+            expected = ast.unparse(jax[name]).replace("_load_chain()", "_load_band()")
+            assert ast.unparse(port[name]) == expected, name
+            continue
         assert ast.dump(port[name]) == ast.dump(jax[name]), name
+    # the original: try: _build(...); lib = CDLL(...); <binding>; _x_lib = lib
+    bindings = {
+        binder: next(n for n in jax[loader].body if isinstance(n, ast.Try)).body[2:-1]
+        for loader, binder in LOADERS.items()
+        if binder is not None
+    }
+    chain = bindings["_bind_chain"]
+    bindings["_bind_chain"] = [n for n in chain if not _binds(n, MOVED)]
     for loader, binder in LOADERS.items():
         if binder is None:
             continue
-        # the original: try: _build(...); lib = CDLL(...); <binding>; _x_lib = lib
-        (attempt,) = (n for n in jax[loader].body if isinstance(n, ast.Try))
-        binding = attempt.body[2:-1]
-        assert [ast.dump(n) for n in port[binder].body] == [ast.dump(n) for n in binding], binder
+        binding, body = bindings[binder], port[binder].body
+        if binder == "_bind_band":
+            # the band library binds the moved DP as the chain library did,
+            # then chain_and_fill, after the original's binding
+            added, body = body[len(binding):], body[: len(binding)]
+            moved = [ast.dump(n) for n in chain if _binds(n, MOVED)]
+            assert [ast.dump(n) for n in added if _binds(n, MOVED)] == moved
+            rest = [n for n in added if not _binds(n, MOVED)]
+            local = {ast.dump(n) for n in chain if isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Name)}
+            assert all(_binds(n, "chain_and_fill") or ast.dump(n) in local for n in rest)
+            assert any(_binds(n, "chain_and_fill") for n in rest)
+        assert [ast.dump(n) for n in body] == [ast.dump(n) for n in binding], binder
         # and the port's loader is _bound(name, _bind_<name>)
         (statement,) = port[loader].body
         assert ast.unparse(statement) == f"return _bound({binder.removeprefix('_bind_')!r}, {binder})"

@@ -362,7 +362,9 @@ def test_an_anim_run_records_every_stage_with_its_pair(tmp_path, monkeypatch) ->
     assert recorded == plain and len(plain) == 4
     totals = spans.totals()
     assert set(RUNNER + ANIM) <= set(totals), sorted(totals)
-    assert spans.counters() == {"runner.parses": 4}
+    counters = spans.counters()
+    assert sorted(counters) == ["anim.native_gaps", "runner.parses"]
+    assert counters["runner.parses"] == 4 and counters["anim.native_gaps"] > 0
     md5 = {row[0] for row in plain}
     records = spans.recent()
     pairs = {r.request for r in records if r.name == "anim.pair"}
