@@ -31,6 +31,18 @@ as ``dp_jax._dispatch_sharded`` splits it), at any window width (no
 bucket ladder, no padding, no host scoring of wide windows), and always
 with the winning cell, so ``PYANI_TPU_ANIB_PALLAS`` and
 ``PYANI_TPU_ANIB_BATCH`` have no meaning here.
+
+The stages carry spans (``utils/spans.py``), those of one ordered pair
+with its (query md5, subject md5): ``anib.index`` (the subject's seed
+indexes, once a column), ``anib.candidates`` (``_pair_tasks``) and inside
+it ``anib.join`` (each ``_record_strand_diags``: the native sort and hash
+join), so that the candidates' self seconds are the Python loop over
+bands, windows and N-run splits; ``anib.submit`` (packing, copy and
+launch), ``sw.wait`` (a side thread blocked on the batch's results),
+``anib.stats`` (``_pair_finalize``: winner stats, E-value gate, accept
+rules) and ``anib.drain`` (the compute thread blocked on the oldest batch
+in flight). The counter ``anib.fragments`` counts the fragments whose
+winner goes to the stats DP.
 """
 
 from __future__ import annotations
@@ -318,7 +330,8 @@ def column_fragment_candidates(
     diags: dict[tuple[int, int, int], dict[int, np.ndarray]] = {}
     for r_idx, rec in enumerate(query.records):
         for s_idx, index in enumerate(seed_indexes):
-            plus, minus = _record_strand_diags(rec.codes, index, fragsize)
+            with spans.span("anib.join"):
+                plus, minus = _record_strand_diags(rec.codes, index, fragsize)
             diags[(r_idx, s_idx, 0)] = plus
             diags[(r_idx, s_idx, 1)] = minus
 
@@ -397,17 +410,19 @@ def _score_device_submit(pairs: list[Pair]):
     """
     from pyani_plus_tpu_torch.parallel import tiles
 
-    mesh = tiles.default_pair_mesh()
-    devices = [backend.kernel_device()] if mesh is None else list(mesh.devices.flat)
-    span = spans.begin("sw.device") if any(d.type == "cuda" for d in devices) else None
-    return batch_sw_best_submit(pairs, devices), span
+    with spans.span("anib.submit"):
+        mesh = tiles.default_pair_mesh()
+        devices = [backend.kernel_device()] if mesh is None else list(mesh.devices.flat)
+        span = spans.begin("sw.device") if any(d.type == "cuda" for d in devices) else None
+        return batch_sw_best_submit(pairs, devices), span
 
 
 def _score_device_collect(state) -> tuple[list[int], list[tuple[int, int]]]:
     """Wait for a submitted batch: (scores, trims) per pair, where
     ``trims[i]`` is the winning (best_i, best_j) cell."""
     parts, span = state
-    out = batch_sw_best_collect(parts)
+    with spans.span("sw.wait"):
+        out = batch_sw_best_collect(parts)
     spans.finish(span)
     return [row[0] for row in out], [(row[1], row[2]) for row in out]
 
@@ -425,7 +440,7 @@ def compute_pair(
 ) -> tuple[float | None, int | None, int | None]:
     """(identity, aln_length, sim_errors) for one directed pair."""
     on_device = use_device()
-    frags, per_frag, flat, spans = _pair_tasks(
+    frags, per_frag, flat, slices = _pair_tasks(
         query, subject, seed_indexes, fragsize, include_singles=on_device
     )
     if not flat:
@@ -436,7 +451,7 @@ def compute_pair(
         flat_scores = _score_host(flat)
         flat_trims = [None] * len(flat)
     return _pair_finalize(
-        query, subject, frags, per_frag, spans, flat_scores, flat_trims
+        query, subject, frags, per_frag, slices, flat_scores, flat_trims
     )
 
 
@@ -473,6 +488,7 @@ def _best_stats(
     if trim is not None and trim[0] > 0:
         strand_frag = strand_frag[: trim[0]]
         window = window[: trim[1]]
+    spans.count("anib.fragments")
     stats = local_align_stats(strand_frag, window)
     if stats is None:
         return None
@@ -511,9 +527,9 @@ def _pair_tasks(
     *,
     include_singles: bool | None = None,
 ):
-    """Candidate enumeration stage: (frags, per_frag, flat, spans).
+    """Candidate enumeration stage: (frags, per_frag, flat, slices).
 
-    ``flat`` is the (strand_frag, window) score-task list; ``spans``
+    ``flat`` is the (strand_frag, window) score-task list; ``slices``
     maps each fragment to its (start, count) slice of ``flat`` (None
     when the fragment needs no score pass). With a device backend,
     single-candidate fragments are ALSO scored (include_singles): their
@@ -524,21 +540,22 @@ def _pair_tasks(
     """
     if include_singles is None:
         include_singles = use_device()
-    subject_records = [rec.codes for rec in subject.records]
-    frags = fragment_genome(query, fragsize)
-    per_frag = column_fragment_candidates(
-        query, subject_records, seed_indexes, fragsize
-    )
-    flat: list[tuple[np.ndarray, np.ndarray]] = []
-    spans = []  # (start, count) into flat per fragment, or None
-    min_cands = 1 if include_singles else 2
-    for cands in per_frag:
-        if len(cands) >= min_cands:
-            spans.append((len(flat), len(cands)))
-            flat.extend((f, w) for f, w, _lo in cands)
-        else:
-            spans.append(None)
-    return frags, per_frag, flat, spans
+    with spans.span("anib.candidates", request=(query.md5, subject.md5)):
+        subject_records = [rec.codes for rec in subject.records]
+        frags = fragment_genome(query, fragsize)
+        per_frag = column_fragment_candidates(
+            query, subject_records, seed_indexes, fragsize
+        )
+        flat: list[tuple[np.ndarray, np.ndarray]] = []
+        slices = []  # (start, count) into flat per fragment, or None
+        min_cands = 1 if include_singles else 2
+        for cands in per_frag:
+            if len(cands) >= min_cands:
+                slices.append((len(flat), len(cands)))
+                flat.extend((f, w) for f, w, _lo in cands)
+            else:
+                slices.append(None)
+    return frags, per_frag, flat, slices
 
 
 def _pair_finalize(  # noqa: PLR0913
@@ -546,7 +563,7 @@ def _pair_finalize(  # noqa: PLR0913
     subject: Genome,
     frags: list[np.ndarray],
     per_frag: list[list[tuple[np.ndarray, np.ndarray, int]]],
-    spans: list[tuple[int, int] | None],
+    slices: list[tuple[int, int] | None],
     flat_scores: list[int],
     flat_trims: list[tuple[int, int] | None] | None = None,
 ) -> tuple[float | None, int | None, int | None]:
@@ -555,9 +572,9 @@ def _pair_finalize(  # noqa: PLR0913
     # the native kernel releases the GIL, so run them in a thread pool.
     per_frag_scores: list[list[int] | None] = []
     per_frag_trims: list[list[tuple[int, int] | None] | None] = []
-    for cands, span in zip(per_frag, spans):
-        if span is not None:
-            start, count = span
+    for cands, piece in zip(per_frag, slices):
+        if piece is not None:
+            start, count = piece
             per_frag_scores.append(flat_scores[start : start + count])
             per_frag_trims.append(
                 flat_trims[start : start + count]
@@ -641,29 +658,29 @@ def _compute_all(ctx, rows, subjects, fragsize):  # noqa: C901
     on_device = use_device()
     group_size = max(1, int(group_env) if group_env else (4 if on_device else 1))
 
+    caller = spans.current()  # the parent of the side threads' spans
+
     def group_results(subject, batch, tasks, offsets, pooled_scores,
                       pooled_trims=None):
         """Winner stats for a group (pure compute; safe off-thread)."""
         out = []
-        for query_hash, (frags, per_frag, flat, spans), off in zip(
+        for query_hash, (frags, per_frag, flat, slices), off in zip(
             batch, tasks, offsets
         ):
-            out.append(
-                (
-                    query_hash,
-                    _pair_finalize(
-                        ctx.genomes[query_hash],
-                        subject,
-                        frags,
-                        per_frag,
-                        spans,
-                        pooled_scores[off : off + len(flat)],
-                        None
-                        if pooled_trims is None
-                        else pooled_trims[off : off + len(flat)],
-                    ),
+            with spans.span("anib.stats", parent=caller,
+                            request=(query_hash, subject.md5)):
+                row = _pair_finalize(
+                    ctx.genomes[query_hash],
+                    subject,
+                    frags,
+                    per_frag,
+                    slices,
+                    pooled_scores[off : off + len(flat)],
+                    None
+                    if pooled_trims is None
+                    else pooled_trims[off : off + len(flat)],
                 )
-            )
+            out.append((query_hash, row))
         return subject, out
 
     def emit(subject, results):
@@ -702,11 +719,18 @@ def _compute_all(ctx, rows, subjects, fragsize):  # noqa: C901
     side_workers = int(os.environ.get("PYANI_TPU_ANIB_SIDE", "2"))
     depth = side_workers + 1
     inflight: deque = deque()
+
+    def oldest():
+        """The oldest group's results, waiting for them if need be."""
+        with spans.span("anib.drain"):
+            return inflight.popleft().result()
+
     side = ThreadPoolExecutor(max_workers=side_workers)
     try:
         for subject_hash in subjects:
             subject = ctx.genomes[subject_hash]
-            seed_indexes = [SeedIndex(rec.codes) for rec in subject.records]
+            with spans.span("anib.index"):
+                seed_indexes = [SeedIndex(rec.codes) for rec in subject.records]
             queries = sorted(q for q, s in ctx.pending if s == subject_hash)
             for lo in range(0, len(queries), group_size):
                 batch = queries[lo : lo + group_size]
@@ -719,7 +743,7 @@ def _compute_all(ctx, rows, subjects, fragsize):  # noqa: C901
                 ]
                 pooled: list[Pair] = []
                 offsets = []
-                for _frags, _per_frag, flat, _spans in tasks:
+                for _frags, _per_frag, flat, _slices in tasks:
                     offsets.append(len(pooled))
                     pooled.extend(flat)
                 if on_device and pooled:
@@ -727,17 +751,17 @@ def _compute_all(ctx, rows, subjects, fragsize):  # noqa: C901
                     while inflight and inflight[0].done():
                         emit(*inflight.popleft().result())
                     while len(inflight) >= depth:
-                        emit(*inflight.popleft().result())
+                        emit(*oldest())
                     inflight.append(
                         side.submit(side_task, subject, batch, tasks,
                                     offsets, state)
                     )
                 else:
                     while inflight:
-                        emit(*inflight.popleft().result())
+                        emit(*oldest())
                     scores = _score_host(pooled) if pooled else []
                     emit(*group_results(subject, batch, tasks, offsets, scores))
         while inflight:
-            emit(*inflight.popleft().result())
+            emit(*oldest())
     finally:
         side.shutdown(wait=False, cancel_futures=True)

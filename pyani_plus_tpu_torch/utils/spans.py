@@ -15,7 +15,8 @@ serves. The parent is the enclosing span on
 that thread, or the span passed as ``parent`` for work handed to a pool
 thread (``current()`` gives it to the caller). The request is inherited
 from the parent unless given; for ANIm's ordered pairs it is (query md5,
-subject md5), so that every span of one pair carries it. The recorder
+subject md5), so that every span of one pair carries it; ANIb's spans
+of one pair carry the same. The recorder
 keeps, under one lock taken once at each span's end:
 
 - per name, the count, the seconds, the self seconds (the seconds less
@@ -85,6 +86,9 @@ NAMES = frozenset((
     "anim.native_gaps", "extend.wait",
     # methods/sourmash.py, ops/minhash.py
     "sourmash.sketch", "sourmash.sketches", "gram.prepare",
+    # methods/anib.py
+    "anib.index", "anib.candidates", "anib.join", "anib.submit", "sw.wait", "anib.stats",
+    "anib.drain", "anib.fragments",
 ))  # fmt: skip
 
 _LOCK = threading.Lock()

@@ -21,6 +21,10 @@
   unrecorded run; ``PYANI_TPU_PROFILE`` writes one trace of the whole run
   that holds the runner's and sourmash's ranges, and runs ANIb's pipeline
   of side threads to the same rows.
+- Runs of ANIb, through its pipeline and on the host route: every
+  ``anib.*`` stage with its pair, ``anib.join`` inside ``anib.candidates``
+  on its thread, ``anib.fragments`` equal to the stats DPs run, and the
+  rows of an unrecorded run.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 
 import pyani_plus_tpu_torch
 from pyani_plus_tpu_torch import synthetic
-from pyani_plus_tpu_torch.methods import sourmash
+from pyani_plus_tpu_torch.methods import anib, sourmash
 from pyani_plus_tpu_torch.ops import extend, minhash
 from pyani_plus_tpu_torch.parallel import runner
 from pyani_plus_tpu_torch.utils import spans
@@ -53,6 +57,8 @@ RUNNER = ["runner.md5", "runner.parse", "runner.genome_rows", "runner.load", "ru
 SOURMASH = ["sourmash.sketch", "gram.prepare"]  # gram.device only where the mesh holds a card
 ANIM = ["anim.pair", "anim.seed", "anim.cluster", "anim.chain", "anim.extend", "extend.wait",
         "anim.filter"]  # fmt: skip
+ANIB = ["anib.index", "anib.candidates", "anib.join", "anib.stats"]
+ANIB_PIPELINE = ["anib.submit", "sw.wait", "anib.drain"]  # batches scored apart from the host
 
 
 def _touch(name: str, parent: spans.Span | None = None) -> int:
@@ -409,3 +415,45 @@ def test_anib_under_the_profiler_gives_the_rows_of_a_plain_run(tmp_path, monkeyp
     ranges, _ = _ranges(trace)
     assert len(ranges["runner.compute"]) == 1 and ranges["runner.store"]
     assert len(ranges["runner.parse"]) == 2 * len(paths) and "sw.device" not in ranges
+
+
+@pytest.mark.parametrize("device", ["1", "0"], ids=["pipeline", "host"])
+def test_an_anib_run_records_every_stage_with_its_pair(tmp_path, monkeypatch, device) -> None:
+    """``PYANI_TPU_ANIB_DEVICE=1``: the batches submitted on the compute
+    thread and collected on side threads (here scored by the plain
+    version); ``0``: the host scorer, no batch."""
+    monkeypatch.setenv("PYANI_TPU_ANIB_DEVICE", device)
+    paths = synthetic.write_genome_dir(tmp_path / "g", 3_000, [0.02, 0.05], 53)
+    plain = _run(tmp_path, paths[0].parent, "ANIb", "plain")
+    assert spans.totals() == {}
+    stats_dps = []
+    real = anib.local_align_stats
+    monkeypatch.setattr(anib, "local_align_stats", lambda *a, **k: stats_dps.append(1) or real(*a, **k))
+    with spans.recording():
+        recorded = _run(tmp_path, paths[0].parent, "ANIb", "recorded")
+    n = len(paths)
+    assert recorded == plain and len(plain) == n**2
+    totals = spans.totals()
+    names = ANIB + ANIB_PIPELINE if device == "1" else ANIB
+    assert set(RUNNER + names) <= set(totals), sorted(totals)
+    assert not set(ANIB_PIPELINE) & set(totals) if device == "0" else True
+    assert spans.counters() == {"runner.parses": 2 * n, "anib.fragments": len(stats_dps)} and stats_dps
+    # one record a genome: an index a column, a join a pair (both strands)
+    assert totals["anib.index"].count == n
+    assert totals["anib.candidates"].count == totals["anib.join"].count == totals["anib.stats"].count == n**2
+    if device == "1":  # one group a column, so a batch a column
+        assert totals["anib.submit"].count == totals["sw.wait"].count == n
+        assert totals["anib.drain"].count >= 1
+    candidates = totals["anib.candidates"]
+    assert candidates.self_seconds == pytest.approx(candidates.seconds - totals["anib.join"].seconds, abs=1e-6)
+    records = spans.recent()
+    by_id = {r.id: r for r in records}
+    md5 = {row[0] for row in plain}
+    pairs = {r.request for r in records if r.name == "anib.candidates"}
+    assert len(pairs) == n**2 and all(q in md5 and s in md5 for q, s in pairs)
+    assert {r.request for r in records if r.name == "anib.stats"} == pairs
+    for join in (r for r in records if r.name == "anib.join"):
+        outer = by_id[join.parent]
+        assert outer.name == "anib.candidates" and outer.thread == join.thread
+        assert join.request == outer.request
+        assert outer.start <= join.start <= join.end <= outer.end + 1e-6
