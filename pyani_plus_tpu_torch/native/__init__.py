@@ -420,6 +420,41 @@ def sam_stream_ms_native(
     return ms_len, ref_start
 
 
+def _bind_sam_lanes(lib) -> None:
+    if getattr(lib, "_sam_lanes_bound", False):
+        return
+    lib.sam_ms_lanes.restype = ctypes.c_int32
+    lib.sam_ms_lanes.argtypes = [ctypes.c_int64]
+    lib.sam_stream_ms_lanes.restype = ctypes.c_int64
+    lib.sam_stream_ms_lanes.argtypes = lib.sam_stream_ms.argtypes
+    lib._sam_lanes_bound = True
+
+
+def sam_stream_ms_lanes_native(
+    index: SamIndex, qry: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """``sam_stream_ms_native``'s arrays, position for position, streamed
+    in interleaved lanes -> (ms_len, ref_start, lanes, rewalked).
+
+    ``lanes`` follows from the query's length alone (1: the serial
+    stream ran); ``rewalked`` counts the positions the boundary fix-up
+    streamed again.
+    """
+    _bind_sam_lanes(index._lib)
+    qry = np.ascontiguousarray(qry, dtype=np.uint8)
+    m = qry.size
+    ms_len = np.empty(m, dtype=np.int32)
+    ref_start = np.empty(m, dtype=np.int64)
+    rewalked = index._lib.sam_stream_ms_lanes(
+        ctypes.c_void_p(index._handle),
+        qry.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        m,
+        ms_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ref_start.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return ms_len, ref_start, int(index._lib.sam_ms_lanes(m)), int(rewalked)
+
+
 def sam_stream_maxmatch_native(
     index: SamIndex, qry: np.ndarray, min_len: int
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -184,6 +184,11 @@ constexpr int F_LINK = 1;
 constexpr int F_NXT = 2;  // .. F_NXT + SIGMA
 constexpr int F_CNT = 7;
 
+// sam_stream_ms_lanes: one lane a MS_LANE_MIN query bases, at most
+// MS_LANES_MAX lanes (misses in flight a thread).
+constexpr int MS_LANES_MAX = 16;
+constexpr int64_t MS_LANE_MIN = 1 << 14;
+
 struct Sam {
   int64_t n = 0;  // text length (forward)
   std::vector<int32_t> hot;  // STRIDE per state
@@ -435,6 +440,142 @@ void sam_stream_ms(const void *h, const uint8_t *qry, int64_t m,
     else
       ref_start[j] = -1;
   }
+}
+
+// The lane count of sam_stream_ms_lanes for a query of m bases: one lane
+// a MS_LANE_MIN bases, at most MS_LANES_MAX; 1 runs sam_stream_ms.
+int32_t sam_ms_lanes(int64_t m) {
+  const int64_t k = m / sam_impl::MS_LANE_MIN;
+  return (int32_t)(k < 1 ? 1 : (k > sam_impl::MS_LANES_MAX ? sam_impl::MS_LANES_MAX : k));
+}
+
+// sam_stream_ms's output, position for position, from sam_ms_lanes(m)
+// contiguous lanes of the query streamed in lockstep.  Each lane streams
+// right to left from the root and prefetches the state its next step
+// reads, so one thread keeps a miss in flight a lane where the serial
+// stream keeps one: on a query that matches little (a minus strand) every
+// step falls down suffix links to random states of a far larger array
+// than the caches.
+//
+// A lane [lo, hi) reads min(ms[j], hi - j) at j: the prefixes of a string
+// that occurs in ref occur too.  Where that equals ms[j], the string, and
+// so the state, is the serial stream's, and so is every step further
+// left, since ms[j - 1] <= ms[j] + 1.  So a lane can be wrong only on one
+// run at its right end.  The fix-up continues the (already exact) stream
+// of the lane to the right into it, rewriting ms_len and ref_start until
+// the continued length meets the lane's, rightmost boundary first.
+// Returns the positions the fix-up streamed again (0 with one lane).
+int64_t sam_stream_ms_lanes(const void *h, const uint8_t *qry, int64_t m,
+                            int32_t *ms_len, int64_t *ref_start) {
+  using namespace sam_impl;
+  const int L = sam_ms_lanes(m);
+  if (L == 1) {
+    sam_stream_ms(h, qry, m, ms_len, ref_start);
+    return 0;
+  }
+  const Sam *s = (const Sam *)h;
+  const int32_t *hot = s->hot.data();
+  const int32_t *fpos = s->fpos.data();
+  const int64_t n1 = s->n - 1;
+  struct Lane {
+    int64_t j;    // next position to stream
+    int64_t lo;   // the lane's first position
+    int64_t out;  // position whose ref_start waits for cur's block, or -1
+    int32_t cur, l;
+    bool pend;  // l is len(cur), read with cur's block (after a link)
+  };
+  Lane lane[MS_LANES_MAX];
+  int32_t fin_cur[MS_LANES_MAX], fin_l[MS_LANES_MAX];
+  int active[MS_LANES_MAX];
+  for (int k = 0; k < L; k++) {
+    lane[k] = {m * (k + 1) / L - 1, m * k / L, -1, 0, 0, false};
+    active[k] = k;
+  }
+  int live = L;
+  while (live) {
+    for (int a = 0; a < live;) {
+      Lane &z = lane[active[a]];
+      const int32_t *blk = hot + (size_t)z.cur * STRIDE;
+      if (z.pend) {
+        z.l = blk[F_LEN];
+        z.pend = false;
+      }
+      if (z.out >= 0) {  // l > 0: the step that set out was a transition
+        ref_start[z.out] = blk[F_CNT] == 1 ? n1 - (int64_t)fpos[z.cur] : -1;
+        z.out = -1;
+      }
+      if (z.j < z.lo) {
+        fin_cur[active[a]] = z.cur;
+        fin_l[active[a]] = z.l;
+        active[a] = active[--live];
+        continue;
+      }
+      const uint8_t raw = qry[z.j];
+      if (raw >= 4) {  // ambiguous: matches nothing
+        z.cur = 0;
+        z.l = 0;
+        ms_len[z.j] = 0;
+        ref_start[z.j--] = -1;
+        a++;
+        continue;
+      }
+      const int32_t t = blk[F_NXT + raw];
+      if (t == -1 && z.cur != 0) {
+        z.cur = blk[F_LINK];
+        z.pend = true;
+      } else if (t != -1) {
+        z.cur = t;
+        ms_len[z.j] = ++z.l;
+        z.out = z.j--;
+        __builtin_prefetch(fpos + t);
+      } else {  // root, no transition
+        z.l = 0;
+        ms_len[z.j] = 0;
+        ref_start[z.j--] = -1;
+      }
+      // a block may straddle two cache lines
+      const int32_t *next = hot + (size_t)z.cur * STRIDE;
+      __builtin_prefetch(next);
+      __builtin_prefetch(next + STRIDE - 1);
+      a++;
+    }
+  }
+  int64_t rewalked = 0;
+  for (int k = L - 2; k >= 0; k--) {
+    int32_t cur = fin_cur[k + 1];
+    int32_t l = fin_l[k + 1];
+    const int64_t lo = m * k / L;
+    int64_t j = m * (k + 1) / L - 1;
+    for (; j >= lo; j--) {
+      rewalked++;
+      const uint8_t raw = qry[j];
+      if (raw >= 4) {
+        cur = 0;
+        l = 0;
+      } else {
+        const int c = raw;
+        while (cur != 0 && s->nxt(cur, c) == -1) {
+          cur = s->link(cur);
+          l = s->len(cur);
+        }
+        const int32_t t = s->nxt(cur, c);
+        if (t != -1) {
+          cur = t;
+          l++;
+        } else {
+          l = 0;
+        }
+      }
+      if (l == ms_len[j]) break;  // the same string: the lane is exact from here
+      ms_len[j] = l;
+      ref_start[j] = s->cnt(cur) == 1 ? n1 - (int64_t)s->fpos[cur] : -1;
+    }
+    if (j < lo) {  // the whole lane was rewritten: it ends where the stream did
+      fin_cur[k] = cur;
+      fin_l[k] = l;
+    }
+  }
+  return rewalked;
 }
 
 // Suffix array of arbitrary int64 symbols (name kept for ABI compat

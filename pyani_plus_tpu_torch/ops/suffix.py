@@ -16,6 +16,8 @@ from collections import OrderedDict
 
 import numpy as np
 
+from pyani_plus_tpu_torch.utils import spans
+
 
 class SeedIndexCache:
     """Process-wide LRU of per-sequence seeding structures.
@@ -250,10 +252,18 @@ def mum_matches_indexed(
     group, with length >= L; a candidate is unique in qry iff it is the
     strict maximum length of its group.  (A shorter group member never
     witnesses a repeat of a longer one: only its prefix repeats.)
-    """
-    from pyani_plus_tpu_torch.native import sam_stream_ms_native
 
-    ms_len, ref_start = sam_stream_ms_native(index, qry)
+    The stream runs in interleaved lanes (``sam_stream_ms_lanes``, exact
+    to the position); the counters ``anim.seed_lanes`` and
+    ``anim.seed_rewalked`` count its lanes and the positions its
+    boundary fix-up streamed again.
+    """
+    from pyani_plus_tpu_torch.native import sam_stream_ms_lanes_native
+
+    ms_len, ref_start, lanes, rewalked = sam_stream_ms_lanes_native(index, qry)
+    if lanes > 1:
+        spans.count("anim.seed_lanes", lanes)
+        spans.count("anim.seed_rewalked", rewalked)
     j = np.nonzero((ms_len >= min_len) & (ref_start >= 0))[0]
     if not j.size:
         return (np.empty(0, np.int64),) * 3

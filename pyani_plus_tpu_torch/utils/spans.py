@@ -84,6 +84,8 @@ NAMES = frozenset((
     # methods/anim.py, ops/extend.py
     "anim.pair", "anim.seed", "anim.cluster", "anim.chain", "anim.extend", "anim.filter",
     "anim.native_gaps", "extend.wait",
+    # ops/suffix.py
+    "anim.seed_lanes", "anim.seed_rewalked",
     # methods/sourmash.py, ops/minhash.py
     "sourmash.sketch", "sourmash.sketches", "gram.prepare",
     # methods/anib.py

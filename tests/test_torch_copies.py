@@ -17,7 +17,8 @@ Each copy equals its original once ``pyani_plus_tpu`` is read as
 equals the original, and each ``_bind_<name>`` sets the argument types
 that the original ``_load_<name>`` sets, but for the port's one addition:
 ``chain_and_fill_native``, whose library, ``band``, also took over the
-consistent anchor chain DP from ``chain``.
+consistent anchor chain DP from ``chain``, and the lane stream of the
+suffix automaton, ``_bind_sam_lanes`` and ``sam_stream_ms_lanes_native``.
 """
 
 from __future__ import annotations
@@ -69,7 +70,12 @@ LOADERS = {
 # call (native/band.cpp's chain_and_fill), which the JAX package lacks.
 # The consistent anchor chain DP it runs moved with it from the chain
 # library to the band library: its binding and its wrapper's loader.
-PORT_ONLY = {"chain_and_fill_native"}
+# And ANIm's matching-statistics stream in interleaved lanes
+# (native/suffix.cpp's sam_stream_ms_lanes): its binder and wrapper. The
+# serial stream, its binding in _bind_sam and its wrapper stay copies,
+# held to the originals below; the lane stream is held to them position
+# for position by tests/test_torch_sam_lanes.py.
+PORT_ONLY = {"chain_and_fill_native", "_bind_sam_lanes", "sam_stream_ms_lanes_native"}
 MOVED = "anchor_chain_dp"
 
 
