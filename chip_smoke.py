@@ -73,8 +73,9 @@ of which raises on failure (so the exit code is not 0):
     ``launch -n 2``, within 60 s, its message naming the variable, and
     stores no comparison;
 12. interrupt and resume on the card, for ANIm and then ANIb: 8 genomes
-    of 200 kb from one ancestor at 1-5% substitutions (64 ordered pairs;
-    an uninterrupted CLI run lasts over 20 s) run once through the runner
+    of 800 kb (ANIm) or 200 kb (ANIb) from one ancestor at 1-5%
+    substitutions (64 ordered pairs; an uninterrupted CLI run lasts over
+    20 s) run once through the runner
     in this process for the reference rows; then the CLI in a subprocess,
     in an environment built without the device request and with every
     card visible, gets SIGTERM (ANIm, as SLURM sends it) or SIGINT (ANIb)
@@ -86,17 +87,7 @@ of which raises on failure (so the exit code is not 0):
     leave the run "Worker interrupted" with the rows it had, and not all;
     the last ``resume`` in a subprocess must reach Done with every row
     equal to the reference's;
-13. the port's headline benchmark, ``python -m pyani_plus_tpu_torch.bench``,
-    in a subprocess on the card at bench.py's default widths (1,000
-    genomes of 100 kb for sourmash, a 400 kb pair and a column of 12
-    queries for ANIm, dnadiff and ANIb, 512 extension tasks, ``launch -n
-    K`` over 12 genomes of 20 kb for K = 1, 2, 4), its imports and its
-    workers' refused and reported: exit 0, bench.py's keys but
-    ``extend_shape_buckets``, the device figures, B1 and B2 launched and a
-    busy share above 0 for each alignment method, the card's name, and
-    ``identity_mean`` equal to the host path's (native sketches, scipy's
-    Gram) on the same genomes; its line is printed;
-14. the edge inputs on which the JAX package's fixture-gated tests pin
+13. the edge inputs on which the JAX package's fixture-gated tests pin
     its behaviour, re-based on synthetic genomes as the port's tests do:
     the coverage set (a 7,582 bp contig with a 28-N run, an 18,001 bp
     contig, and both as two records of one file), a null pair of
@@ -106,11 +97,11 @@ of which raises on failure (so the exit code is not 0):
     (the native host route): rows equal, the coverage by contig length,
     the NULL cross rows, the N run's identity, B1 launched by ANIm and
     dnadiff and B2 by ANIb, sourmash's Gram on the host at these sizes;
-15. the profiler trace: ``PYANI_TPU_PROFILE`` set, ANIm and then ANIb over
+14. the profiler trace: ``PYANI_TPU_PROFILE`` set, ANIm and then ANIb over
     the coverage set and the contig pair in this process; each
     ``trace-<pid>.json`` loads and holds one CUDA kernel event of the
-    kernel's name for each launch counted, rows equal to phase 14's;
-16. the unit edges and a long trace: the edge inputs of the port's unit
+    kernel's name for each launch counted, rows equal to phase 13's;
+15. the unit edges and a long trace: the edge inputs of the port's unit
     tests (``synthetic.extension_edge_tasks``: the named DP pairs, one-code,
     N-only and IUPAC tasks, the two fuzz sets, the four tasks around the
     JAX package's largest bucket of 10,240 columns, the band DP trials and
@@ -126,7 +117,7 @@ of which raises on failure (so the exit code is not 0):
     ``PYANI_TPU_PROFILE``: rows equal to phase 5's, one ``extend_kernel``
     event in the trace for each of the run's launches, the two walls and
     the trace's bytes printed;
-17. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
+16. neither ``jax`` nor the JAX package ``pyani_plus_tpu`` was imported.
 
 Each main-path run zeroes the launch counts just before it and reads
 them just after.
@@ -277,11 +268,20 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def packed_on_card(tasks: list[tuple[np.ndarray, np.ndarray]], order: np.ndarray | None = None):
+    """``tasks`` packed as the kernels take them (in ``order``, when given)
+    and copied to the card: the staging buffer and the six views there."""
+    from pyani_plus_tpu_torch.ops._tasks import pack_tasks
+
+    staging = pack_tasks(tasks, order)
+    return staging, staging.views(staging.buf.cuda())
+
+
 def check_kernel(torch, ext) -> dict:
     """Phase 3: the extension kernel against its plain version and the
     host oracle, its times, and the batch-size sweep."""
-    from pyani_plus_tpu_torch.bench import extension_tasks
     from pyani_plus_tpu_torch.methods import anim
+    from pyani_plus_tpu_torch.synthetic import extension_tasks
     from pyani_plus_tpu_torch.utils import intra_pair_workers
 
     rng = np.random.default_rng(SEED)
@@ -291,7 +291,7 @@ def check_kernel(torch, ext) -> dict:
                f"(longest {max(a.size for a, _ in tasks)} rows, {wide} with 32-bit fields)")
     if not 0 < wide < len(tasks):
         raise AssertionError("the fuzz set must hold tasks of both payload widths")
-    got = ext.batch_extend_cuda(tasks)
+    got = ext.batch_extend(tasks, "cuda")
     torch.cuda.synchronize()
     plain = ext.batch_extend_reference(tasks)
     host = ext.batch_extend_host(tasks, workers=os.cpu_count() or 1)
@@ -306,8 +306,8 @@ def check_kernel(torch, ext) -> dict:
     tasks = extension_tasks(rng, 512)
     t0 = phase("kernel vs plain at the main path's shape: 512 tasks, "
                "1500-3200 rows, every 8th 9900 rows, 12% substitutions")
-    staging, order = ext.pack_tasks(tasks)
-    packed = ext.split_packed(staging.cuda(), len(tasks))
+    order = ext.launch_order(tasks)
+    staging, packed = packed_on_card(tasks, order)
     out = ext.extend_cuda(*packed)  # warm
     torch.cuda.synchronize()
     reps = 10
@@ -323,7 +323,7 @@ def check_kernel(torch, ext) -> dict:
     rows[order] = out.cpu().numpy()
     got = [tuple(r) for r in rows.tolist()]
 
-    wrapper_ms = median_ms(lambda: ext.batch_extend_cuda(tasks), 5)
+    wrapper_ms = median_ms(lambda: ext.batch_extend(tasks, "cuda"), 5)
     t1 = time.monotonic()
     plain = ext.batch_extend_reference(tasks)
     plain_ms = (time.monotonic() - t1) * 1e3
@@ -346,10 +346,10 @@ def check_kernel(torch, ext) -> dict:
     print(f"   plain PyTorch ms on the CPU (host clock, one run): {plain_ms:.1f}")
     print(f"   native host kernel ms, {workers} threads (host clock): {host_ms:.1f}")
     record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-              **bound("extend", cells, staging.numel() + out.numel() * 4)}
+              **bound("extend", cells, staging.buf.numel() + out.numel() * 4)}
     # the same mix eight times over, 4,096 tasks: several warps share a
     # scheduler, so the card's rate shows and not one task's latency
-    big = ext.split_packed(ext.pack_tasks(tasks * 8)[0].cuda(), len(tasks) * 8)
+    _, big = packed_on_card(tasks * 8, ext.launch_order(tasks * 8))
     ext.extend_cuda(*big)
     torch.cuda.synchronize()
     start.record()
@@ -368,12 +368,12 @@ def check_kernel(torch, ext) -> dict:
 
     t0 = phase("4 threads, each one batch of 128 main-shape tasks on its own stream")
     shares = [tasks[i::4] for i in range(4)]
-    one_ms = median_ms(lambda: ext.batch_extend_cuda(shares[0]), 5)
+    one_ms = median_ms(lambda: ext.batch_extend(shares[0], "cuda"), 5)
     gate = threading.Barrier(4)
 
     def together(share):
         gate.wait()  # all four threads submit at once
-        return ext.batch_extend_cuda(share)
+        return ext.batch_extend(share, "cuda")
 
     rounds = []
     with ThreadPoolExecutor(max_workers=4) as pool:
@@ -388,11 +388,11 @@ def check_kernel(torch, ext) -> dict:
           f"(all {[round(r, 3) for r in rounds]})")
     # the kernels alone, from one thread: four streams against one
     streams = [torch.cuda.Stream() for _ in shares]
-    on_card = [ext.split_packed(ext.pack_tasks(s)[0].cuda(), len(s)) for s in shares]
+    share_views = [packed_on_card(s, ext.launch_order(s))[1] for s in shares]
     torch.cuda.synchronize()
 
     def four_kernels(side_by_side: bool) -> None:
-        for stream, views in zip(streams, on_card):
+        for stream, views in zip(streams, share_views):
             with torch.cuda.stream(stream if side_by_side else torch.cuda.current_stream()):
                 ext.extend_cuda(*views)
         torch.cuda.synchronize()
@@ -411,7 +411,7 @@ def check_kernel(torch, ext) -> dict:
         wins_from = None
         for size in SWEEP:
             batch = pool_tasks[:size]
-            card_ms = median_ms(lambda: ext.batch_extend_cuda(batch), 5)
+            card_ms = median_ms(lambda: ext.batch_extend(batch, "cuda"), 5)
             # as _run_extensions runs them: a thread pool only past 4 tasks
             host_workers = workers if size > 4 else 1
             host_ms = median_ms(lambda: ext.batch_extend_host(batch, workers=host_workers), 5)
@@ -540,7 +540,7 @@ def check_sw_kernel(torch, sw) -> dict:
     narrow = [sw.uses_packed_lanes(q.size, s.size) for q, s in tasks]
     if sum(narrow) < 4 or len(narrow) - sum(narrow) < 4:
         raise AssertionError("the SW fuzz set must hold several tasks of each width")
-    got = sw.batch_sw_best_cuda(tasks)
+    got = sw.batch_sw_best(tasks, "cuda")
     torch.cuda.synchronize()
     plain = sw.batch_sw_best_reference(tasks)
     host = sw.batch_sw_best_host(tasks, workers=workers)
@@ -566,7 +566,7 @@ def check_sw_kernel(torch, sw) -> dict:
     tasks = sw_main_tasks(rng)
     cells = sum(q.size * s.size for q, s in tasks)
     t0 = phase(f"SW kernel vs plain at ANIb's shape: 1024 tasks, {cells} cells")
-    packed = [t.cuda() for t in sw.pack_tasks(tasks)]
+    staging, packed = packed_on_card(tasks)
     out = sw.sw_cuda(*packed)  # warm
     torch.cuda.synchronize()
     reps = 10
@@ -581,7 +581,7 @@ def check_sw_kernel(torch, sw) -> dict:
     got = [tuple(r) for r in out.cpu().tolist()]
 
     t1 = time.monotonic()
-    sw.batch_sw_best_cuda(tasks)
+    sw.batch_sw_best(tasks, "cuda")
     wrapper_ms = (time.monotonic() - t1) * 1e3
     t1 = time.monotonic()
     plain = sw.batch_sw_best_reference(tasks)
@@ -598,7 +598,7 @@ def check_sw_kernel(torch, sw) -> dict:
     print(f"   kernel wrapper ms incl. packing and copies (host clock): {wrapper_ms:.3f}")
     print(f"   plain PyTorch ms on the CPU (host clock, one run): {plain_ms:.1f}")
     print(f"   native score + stats DPs ms, {workers} threads (host clock): {host_ms:.1f}")
-    nbytes = sum(int(x.numel()) * x.element_size() for x in packed) + out.numel() * 4
+    nbytes = staging.buf.numel() + out.numel() * 4
     record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
               **bound("sw", cells, nbytes)}
     # not a bound: the 32-bit kernel's instructions at the card's rate
@@ -616,7 +616,7 @@ def check_sw_kernel(torch, sw) -> dict:
     t0 = phase(f"SW kernel at ANIb's launch shape: {SW_BIG * len(tasks)} tasks, "
                f"{SW_BIG * cells} cells in one launch")
     order = np.random.default_rng(SEED + 5).permutation(SW_BIG * len(tasks)) % len(tasks)
-    big = [t.cuda() for t in sw.pack_tasks([tasks[t] for t in order])]
+    _, big = packed_on_card(tasks, order)
     big_out = sw.sw_cuda(*big)  # warm
     torch.cuda.synchronize()
     start.record()
@@ -679,7 +679,6 @@ def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
     os.environ.update(host_env)
     kernel.reset_counts()
     t0 = phase(f"{method} {tag}: {'native host' if host_env else 'CUDA kernel'}")
-    window = spans.now()
     try:
         with spans.recording():
             runner.start_and_run_method(logger, db, fasta, method, create_db=True)
@@ -688,10 +687,8 @@ def run_method(kernel, runner, logger, work: Path, fasta: Path, method: str,
             os.environ.pop(key, None)
     launches, tasks = kernel.LAUNCHES, kernel.TASKS
     seconds = time.monotonic() - t0
-    busy = spans.busy_fraction(window)
     done(tag, t0)
     print(f"   kernel launches {launches}, tasks through the kernel {tasks}")
-    print(f"   device busy share (device spans, submit to result of each batch): {busy:.4f}")
     return comparison_rows(db), launches, seconds
 
 
@@ -876,19 +873,16 @@ def check_sourmash_path(minhash, runner, logger, work: Path) -> None:
     minhash.reset_counts()
     spans.reset()
     t0 = phase(f"sourmash all-vs-all: {len(paths)} genomes through the port's runner")
-    window = spans.now()
     with spans.recording():
         runner.start_and_run_method(logger, db, paths[0].parent, "sourmash",
                                     create_db=True, cache=cache)
     launches = minhash.LAUNCHES
-    busy = spans.busy_fraction(window)
     done("sourmash run", t0)
     for name, total in spans.totals().items():  # the runner's, sourmash's and the Gram's stages
         print(f"   span {name}: {total.seconds:.3f} s, self {total.self_seconds:.3f} s "
               f"({total.count} spans)")
     print(f"   counters: {spans.counters()}")
-    print(f"   device Gram calls on the card: {launches}; "
-          f"device busy share (device spans): {busy:.4f}")
+    print(f"   device Gram calls on the card: {launches}")
 
     with sqlite3.connect(db) as conn:
         rows = conn.execute(
@@ -1054,14 +1048,14 @@ def check_split_paths(torch, minhash, sw, runner, logger, work: Path, genomes: P
 
     tasks = sw_main_tasks(np.random.default_rng(SEED + 6))
     t0 = phase(f"split SW: {len(tasks)} main-shape tasks over the card named twice")
-    one = sw.batch_sw_best_cuda(tasks, device=card)
+    one = sw.batch_sw_best(tasks, card)
     before = sw.LAUNCHES
     halves = sw.batch_sw_best(tasks, [card, card])
     if sw.LAUNCHES != before + 2:
         raise AssertionError(f"the split SW made {sw.LAUNCHES - before} launches, not 2")
     if halves != one:
         raise AssertionError("the split SW differs from one launch")
-    one_ms = median_ms(lambda: sw.batch_sw_best_cuda(tasks, device=card), 5)
+    one_ms = median_ms(lambda: sw.batch_sw_best(tasks, card), 5)
     halves_ms = median_ms(lambda: sw.batch_sw_best(tasks, [card, card]), 5)
     print(f"   identical tuples on all {len(tasks)} tasks; wrapper ms incl. packing and copies "
           f"(host clock, median of 5): one launch {one_ms:.3f}, two slices {halves_ms:.3f} ({smi})")
@@ -1260,9 +1254,12 @@ def check_device_choice(torch, ext, runner, logger, work: Path, anim_rows: list[
 # Running, and 7-12 rows were stored in the 5 s before the signal; at
 # 500 kb ANIm took 48.7 s and stored one. At 200 kb ANIm took 17.5 s and
 # ANIb 14.4 s, with 10 and 20 rows stored before the signal, and the
-# phase 114 s.
+# phase 114 s. Since ANIm's faster chaining and seeding, ANIm takes 4.2 s
+# at 200 kb and the CLI is Done before the signal, so ANIm's genomes are
+# four times as long: at 800 kb ANIm took 11.8 s and stored 9 rows before
+# the signal.
 INTERRUPT_RATES = [0.01 + 0.04 * i / 7 for i in range(8)]
-INTERRUPT_LENGTH = 200_000
+INTERRUPT_LENGTH = {"ANIm": 800_000, "ANIb": 200_000}
 INTERRUPT_DELAY = 5.0  # seconds from "Running" and the card in the log to SIGINT
 INTERRUPT_KERNEL = {"ANIm": ("B1", "extend_launches"), "ANIb": ("B2", "sw_launches")}
 # SLURM stops a job with SIGTERM; a user at the terminal with SIGINT.
@@ -1358,19 +1355,19 @@ def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> Non
     env["PYTHONPATH"] = os.pathsep.join([str(hook), str(root),
                                          *filter(None, [os.environ.get("PYTHONPATH")])])
     cli = [sys.executable, "-m", "pyani_plus_tpu_torch.cli.main"]
-    genomes = work / "interrupt_genomes"
-    write_genome_dir(genomes, INTERRUPT_LENGTH, INTERRUPT_RATES, SEED)
     n_pairs = len(INTERRUPT_RATES) ** 2
     for (method, command), kernel in zip((("ANIm", "anim"), ("ANIb", "anib")), kernels):
         name, key = INTERRUPT_KERNEL[method]
         sig = INTERRUPT_SIGNAL[method]
+        genomes = work / f"interrupt_genomes_{command}"
+        write_genome_dir(genomes, INTERRUPT_LENGTH[method], INTERRUPT_RATES, SEED)
         reference, launches, seconds = run_method(kernel, runner, logger, work, genomes, method,
                                                   f"{command}_uninterrupted", host_env=None)
         if len(reference) != n_pairs or not launches:
             raise AssertionError(f"{method} uninterrupted: {len(reference)} rows, "
                                  f"{launches} launches")
         print(f"   {method} uninterrupted: {len(INTERRUPT_RATES)} genomes of "
-              f"{INTERRUPT_LENGTH} bp, {n_pairs} rows in {seconds:.3f} s ({smi})")
+              f"{INTERRUPT_LENGTH[method]} bp, {n_pairs} rows in {seconds:.3f} s ({smi})")
 
         db, tag = work / f"{command}_interrupted.db", f"{command}_interrupted"
         t0 = phase(f"{method} CLI on the card, {sig.name} {INTERRUPT_DELAY} s after Running")
@@ -1430,132 +1427,7 @@ def check_interrupt_resume(kernels, runner, logger, work: Path, smi: str) -> Non
         done(f"{command} resume", t0)
 
 
-# Phase 13: the port's headline benchmark at bench.py's default widths.
-# The keys of bench.py's line on an accelerator, less extend_shape_buckets
-# (the TPU kernel's compiled shapes, which the CUDA kernel does not have).
-BENCH_DEVICE_KEYS = ("extend_compile_seconds", "extend_lanes_per_sec_device",
-                     "sketch_seconds_device_projected")
-BENCH_SCALING_KEYS = ("scaling_n_processes", "scaling_pairs_per_sec", "scaling_wall_seconds",
-                      "scaling_startup_seconds", "scaling_efficiency_n2",
-                      "scaling_efficiency_n4", "scaling_host_cores", "scaling_efficiency")
-BENCH_PY_KEYS = frozenset({
-    "metric", "value", "value_median", "value_spread", "timing_reps", "unit", "vs_baseline",
-    "fixture_max_abs_err", "sketch_seconds", "device_seconds", "compile_seconds",
-    "identity_mean", "classify_seconds", "classify_cliques", "extend_lanes_per_sec_host",
-    "anib_compile_seconds", "animinimap2_projected_days_n1000", "device_busy_fraction",
-    *(f"{method}_divergent_pair_seconds{suffix}"
-      for method in ("anim", "anib", "fastani", "dnadiff", "animinimap2")
-      for suffix in ("", "_spread")),
-    *(f"{method}_{key}" for method in ("anim", "dnadiff", "anib")
-      for key in ("column_pair_seconds", "column_pair_seconds_spread",
-                  "device_busy_fraction", "projected_days_n1000")),
-    *BENCH_DEVICE_KEYS, *BENCH_SCALING_KEYS,
-})  # fmt: skip
-BENCH_TIMEOUT = 900
-
-
-def bench_identity_mean_on_the_host() -> float:
-    """The bench's headline ``identity_mean`` at its default widths from
-    the host path: the same genomes, the native sketch on one thread and
-    scipy's Gram."""
-    from pyani_plus_tpu_torch.bench import identity_from_counts, synth_genomes
-    from pyani_plus_tpu_torch.native import sketch_codes_native
-    from pyani_plus_tpu_torch.ops.minhash import Sketch, intersection_matrix_host, max_hash_for_scaled
-
-    max_hash = max_hash_for_scaled(1000)
-    sketches = [Sketch("h", 31, 1000, np.unique(sketch_codes_native(codes, 31, max_hash)))
-                for codes in synth_genomes(1000, 100_000)]  # fmt: skip
-    counts = intersection_matrix_host(sketches).astype(np.float64)
-    sizes = np.array([s.hashes.size for s in sketches], dtype=np.float64)
-    identity, _ = identity_from_counts(counts, sizes, 31)
-    return float(np.nanmean(identity))
-
-
-def check_bench(torch, ext, work: Path, smi: str) -> dict[str, int]:
-    """Phase 13: ``python -m pyani_plus_tpu_torch.bench`` in a subprocess
-    on the card at bench.py's default widths (1,000 genomes of 100 kb, a
-    400 kb pair, 12 queries, 512 extension tasks, launch over 12 genomes of
-    20 kb at K = 1, 2, 4), in an environment built without any
-    ``PYANI_TPU*``, ``BENCH_*`` or ``CUDA_VISIBLE_DEVICES`` variable, its
-    imports and its launch workers' refused and reported
-    (``WORKER_SITE_HOOK``). It must exit 0 with bench.py's keys but
-    ``extend_shape_buckets``, the device figures, a busy share above 0 for
-    ANIm, dnadiff and ANIb (B1 and B2 ran on the card), nvidia-smi's card,
-    and the headline ``identity_mean`` equal to the host path's. Then, in this process, the extension section's call timed by the
-    host clock alone and with a synchronise before the stop. Returns the
-    bench process's launches of each kernel."""
-    hook = work / "bench_hook"
-    reports = work / "bench_reports"
-    hook.mkdir()
-    reports.mkdir()
-    (hook / "sitecustomize.py").write_text(WORKER_SITE_HOOK)
-    root = Path(__file__).resolve().parent
-    env = {key: value for key, value in os.environ.items()
-           if not key.startswith(("PYANI_TPU", "BENCH_")) and key != "CUDA_VISIBLE_DEVICES"}  # fmt: skip
-    env["PYTHONPATH"] = os.pathsep.join([str(hook), str(root),
-                                         *filter(None, [os.environ.get("PYTHONPATH")])])
-    env["SMOKE_WORKER_REPORTS"] = str(reports)
-    t0 = phase("the port's bench on the card at bench.py's default widths")
-    proc = subprocess.Popen([sys.executable, "-m", "pyani_plus_tpu_torch.bench"], cwd=root,
-                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    seconds = time.monotonic() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"the bench exited {proc.returncode}: {err[-3000:]}")
-    line = json.loads(out.strip().splitlines()[-1])
-    print(f"   bench line: {json.dumps(line)}")
-    missing = sorted(BENCH_PY_KEYS - set(line))
-    if missing or "extend_shape_buckets" in line:
-        raise AssertionError(f"the bench's keys: missing {missing}, {sorted(line)}")
-    busy = {key: line[f"{key}_device_busy_fraction"] for key in ("anim", "dnadiff", "anib")}
-    if not all(share > 0 for share in busy.values()):
-        raise AssertionError(f"a method's column did not use the card: {busy}")
-    if line["device_name"] != smi.rpartition(",")[0].strip():
-        raise AssertionError(f"the bench's card {line['device_name']!r} is not {smi!r}")
-    identity_mean = bench_identity_mean_on_the_host()
-    if line["identity_mean"] != identity_mean:
-        raise AssertionError(f"the bench's identity_mean {line['identity_mean']!r} is not the "
-                             f"host path's {identity_mean!r}")
-    found = {int(path.name): json.loads(path.read_text()) for path in reports.iterdir()}
-    foreign = {pid: report["foreign"] for pid, report in found.items() if report["foreign"]}
-    if foreign:
-        raise AssertionError(f"the bench's processes imported {foreign}")
-    report = found[proc.pid]
-    launches = {"extend": report["extend_launches"], "sw": report["sw_launches"]}
-    if report["device"] != "cuda:0" or not all(launches.values()):
-        raise AssertionError(f"the bench process: {report}")
-    workers = sorted((r["extend_launches"] or 0) for pid, r in found.items() if pid != proc.pid)
-    print(f"   keys: bench.py's {len(BENCH_PY_KEYS)} but extend_shape_buckets, and the card's "
-          f"name and limit; busy shares {busy}; B1 launches {launches['extend']}, B2 launches "
-          f"{launches['sw']} in the bench process, B1 launches in the {len(workers)} launch "
-          f"processes {workers}; no process imported jax or pyani_plus_tpu")
-    print(f"   identity_mean == the host path's (native sketches, scipy Gram): {identity_mean!r}")
-    print(f"   bench wall s: {seconds:.3f} ({smi})")
-
-    from pyani_plus_tpu_torch.bench import extension_tasks
-
-    tasks = extension_tasks(np.random.default_rng(9), 512)
-    device = torch.device("cuda", 0)
-    ext.batch_extend(tasks, device, stop_rows=600)
-    t1 = time.time()
-    ext.batch_extend(tasks, device, stop_rows=600)
-    alone = time.time() - t1
-    t1 = time.time()
-    ext.batch_extend(tasks, device, stop_rows=600)
-    torch.cuda.synchronize()
-    synced = time.time() - t1
-    print(f"   the extension section's call of 512 tasks, host clock s: {alone:.6f} alone, "
-          f"{synced:.6f} with torch.cuda.synchronize() before the stop ({smi})")
-    done("bench", t0)
-    return launches
-
-
-# Phase 14: the inputs on which the JAX package's end-to-end behaviour is
+# Phase 13: the inputs on which the JAX package's end-to-end behaviour is
 # pinned by its fixture-gated tests, re-based on synthetic genomes with the
 # seeds of the port's tests that hold it to the JAX package on the CPU
 # (tests/test_torch_coverage_semantics.py, test_torch_bad_alignments_e2e.py,
@@ -1633,7 +1505,7 @@ def check_edge_rows(name: str, method: str, rows: list[tuple]) -> None:
 
 
 def check_edge_inputs(counters: dict, runner, logger, work: Path, smi: str) -> dict:
-    """Phase 14: ANIm, dnadiff, ANIb and sourmash over each edge input
+    """Phase 13: ANIm, dnadiff, ANIb and sourmash over each edge input
     through the port's runner on the card, and again with the CPU
     requested in this process (the native host route); rows equal (ints
     exact, floats ==), the JAX cases' assertions met, B1 launched by ANIm
@@ -1685,19 +1557,19 @@ def check_edge_inputs(counters: dict, runner, logger, work: Path, smi: str) -> d
             print(f"   sourmash: at most 3 genomes an input and {hashes} hashes in all (below "
                   f"2^18): the Gram takes the host route, no launch claimed")
     seconds = time.monotonic() - t0
-    print(f"   phase 14 wall s: {seconds:.3f} ({smi})")
+    print(f"   phase 13 wall s: {seconds:.3f} ({smi})")
     done("edge inputs", t0)
     return rows
 
 
 def check_profiler_trace(counters: dict, runner, logger, work: Path, edge_rows: dict,
                          smi: str) -> None:
-    """Phase 15: ``PYANI_TPU_PROFILE`` on the card. ANIm and then ANIb over
+    """Phase 14: ``PYANI_TPU_PROFILE`` on the card. ANIm and then ANIb over
     the coverage set and the contig pair through the runner in this
     process, each into a directory of its own: ``trace-<pid>.json`` must
     load as JSON and hold one CUDA kernel event whose name contains the
     kernel's symbol for each launch its wrapper counted, in all more than
-    none; rows equal to phase 14's."""
+    none; rows equal to phase 13's."""
     inputs = {"coverage": work / "edge" / "coverage", "contigs": work / "edge" / "contigs"}
     for method, kernel, symbol in (("ANIm", "B1", "extend_kernel"), ("ANIb", "B2", "sw_kernel")):
         seen = 0
@@ -1720,11 +1592,11 @@ def check_profiler_trace(counters: dict, runner, logger, work: Path, edge_rows: 
                 raise AssertionError(f"{method} {name}: {len(found)} {symbol} events in the trace, "
                                      f"{launches[kernel]} launches; categories {kinds}")
             if rows != edge_rows[method, name]:
-                raise AssertionError(f"{method} {name}: rows under the profiler differ from phase 14's")
+                raise AssertionError(f"{method} {name}: rows under the profiler differ from phase 13's")
             seen += len(found)
             print(f"   {trace.name}: {trace.stat().st_size} bytes, {len(events)} events, "
                   f"{len(found)} {symbol} kernel events == {launches[kernel]} {kernel} launches; "
-                  f"rows equal to phase 14's; s {seconds:.3f} ({smi})")
+                  f"rows equal to phase 13's; s {seconds:.3f} ({smi})")
             done(f"{method} {name} traced", t0)
         if not seen:
             raise AssertionError(f"{method}: no {symbol} event in any trace")
@@ -1740,7 +1612,7 @@ def by_group(groups: dict[str, list], results: list) -> dict[str, list]:
 
 
 def check_unit_edges(torch, ext, sw, minhash, smi: str) -> dict[str, dict[str, int]]:
-    """Phase 16a: the unit tests' edge inputs through B1, B2 and the Gram
+    """Phase 15a: the unit tests' edge inputs through B1, B2 and the Gram
     on the card. Each kernel takes its tasks in one launch (counted apart
     from the main path's), tuples equal to the plain version's and the
     native oracle's; the Gram's counts equal the host's, its ANI matrices
@@ -1751,9 +1623,9 @@ def check_unit_edges(torch, ext, sw, minhash, smi: str) -> dict[str, dict[str, i
     workers = os.cpu_count() or 1
     record = {}
     kernels = (
-        ("extend", ext, synthetic.extension_edge_tasks(SEED + 5), ext.batch_extend_cuda,
+        ("extend", ext, synthetic.extension_edge_tasks(SEED + 5), ext.batch_extend,
          ext.batch_extend_reference, lambda tasks: ext.batch_extend_host(tasks, workers=workers)),
-        ("sw", sw, synthetic.sw_edge_tasks(SEED + 6, rule_edge=True), sw.batch_sw_best_cuda,
+        ("sw", sw, synthetic.sw_edge_tasks(SEED + 6, rule_edge=True), sw.batch_sw_best,
          sw.batch_sw_best_reference, lambda tasks: sw.batch_sw_best_host(tasks, workers=workers)),
     )  # fmt: skip
     for name, module, groups, kernel, plain_fn, host_fn in kernels:
@@ -1762,7 +1634,7 @@ def check_unit_edges(torch, ext, sw, minhash, smi: str) -> dict[str, dict[str, i
                    f"({', '.join(f'{g} {len(v)}' for g, v in groups.items())}), longest "
                    f"{max(max(a.size, b.size) for a, b in tasks)}")  # fmt: skip
         launches, count = module.LAUNCHES, module.TASKS
-        got = kernel(tasks)
+        got = kernel(tasks, "cuda")
         torch.cuda.synchronize()
         launches, count = module.LAUNCHES - launches, module.TASKS - count
         t1 = time.monotonic()
@@ -1816,7 +1688,7 @@ def check_unit_edges(torch, ext, sw, minhash, smi: str) -> dict[str, dict[str, i
 
 def check_long_trace(ext, runner, logger, work: Path, genomes: Path,
                      anim_rows: list[tuple], anim_launches: int, smi: str) -> None:
-    """Phase 16b: the trace's cost on a long run. Phase 5's ANIm over the
+    """Phase 15b: the trace's cost on a long run. Phase 5's ANIm over the
     2 Mb genomes, once without and then once with ``PYANI_TPU_PROFILE``,
     the card equally warm for both: rows equal to phase 5's, as many
     launches, and one ``extend_kernel`` kernel event in the trace for each
@@ -1914,7 +1786,6 @@ def main() -> int:
         check_graft_entry(torch, sw, report.smi)
         check_device_choice(torch, ext, runner, logger, work, anim[1], report.smi)
         check_interrupt_resume((ext, sw), runner, logger, work, report.smi)
-        check_bench(torch, ext, work, report.smi)
         counters = {"B1": ext, "B2": sw, "Gram": minhash}
         edge_rows = check_edge_inputs(counters, runner, logger, work, report.smi)
         check_profiler_trace(counters, runner, logger, work, edge_rows, report.smi)

@@ -413,17 +413,14 @@ def _score_device_submit(pairs: list[Pair]):
     with spans.span("anib.submit"):
         mesh = tiles.default_pair_mesh()
         devices = [backend.kernel_device()] if mesh is None else list(mesh.devices.flat)
-        span = spans.begin("sw.device") if any(d.type == "cuda" for d in devices) else None
-        return batch_sw_best_submit(pairs, devices), span
+        return batch_sw_best_submit(pairs, devices)
 
 
-def _score_device_collect(state) -> tuple[list[int], list[tuple[int, int]]]:
+def _score_device_collect(parts) -> tuple[list[int], list[tuple[int, int]]]:
     """Wait for a submitted batch: (scores, trims) per pair, where
     ``trims[i]`` is the winning (best_i, best_j) cell."""
-    parts, span = state
     with spans.span("sw.wait"):
         out = batch_sw_best_collect(parts)
-    spans.finish(span)
     return [row[0] for row in out], [(row[1], row[2]) for row in out]
 
 

@@ -10,14 +10,12 @@ the integer.
 - ``batch_extend_submit`` / ``batch_extend_collect`` run a list of
   ragged (a, b) code tails through ``csrc/extend.cu`` (one warp per
   task, any length: no padding ladder and no host route for long
-  tasks). Submit packs the tasks, longest first, into one page-locked
-  staging buffer, copies it to the card in one transfer, launches the
-  kernel and queues the copy of the results back, all on the calling
-  thread's own stream and without waiting; collect waits for that
-  batch's event only (the span ``extend.wait``). Pair threads therefore
-  overlap their launches on the card, and a caller can do host work
-  between the two. A batch on the card is the span ``extend.device``
-  from its submit to its results on the host.
+  tasks). Submit sorts the tasks longest first and hands them to
+  ``ops/_tasks.submit`` (one page-locked buffer, one copy, the launch and
+  the results' copy back) on the calling thread's own stream, without
+  waiting; collect waits for that batch's event only (the span
+  ``extend.wait``). Pair threads therefore overlap their launches on the
+  card, and a caller can do host work between the two.
 - ``batch_extend_reference`` is the plain PyTorch version: (B, 128)
   int64 band states advanced one row at a time for all tasks together,
   with the I state closed by ``torch.cummax`` and a gather. It always
@@ -33,13 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from pyani_plus_tpu_torch.ops._build import load_library
-from pyani_plus_tpu_torch.ops._tasks import Task, check_packed
+from pyani_plus_tpu_torch.ops._tasks import Submitted, Task, check_packed, submit
 from pyani_plus_tpu_torch.ops.extend_host import EXTEND, MATCH, MISMATCH, NEG, OPEN
 from pyani_plus_tpu_torch.utils import spans
 
@@ -60,11 +58,6 @@ LAUNCHES = 0
 TASKS = 0
 _COUNT_LOCK = threading.Lock()
 _THREAD = threading.local()  # .streams: device index -> this thread's stream
-# Packing is a millisecond of Python and numpy under the GIL. Pair threads
-# that pack at the same moment hand the GIL back and forth in 5 ms
-# slices and each takes ten times as long; with this lock they take
-# turns, and the waiting ones leave the GIL alone.
-_PACK_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -97,60 +90,6 @@ def launch_order(tasks: list[Task]) -> np.ndarray:
 def uses_packed_fields(task: Task) -> bool:
     """Whether the kernel runs this task with 16-bit payload fields."""
     return task[0].size + task[1].size <= PACK_LIMIT
-
-
-def pack_tasks(
-    tasks: list[Task], *, pin_memory: bool = False
-) -> tuple[torch.Tensor, np.ndarray]:
-    """Ragged tasks as ONE uint8 staging buffer in launch order, and that
-    order (``order[p]`` is the caller's index of the task at position
-    ``p``). The buffer holds, for B tasks: B int64 offsets of the ``a``
-    codes and B of the ``b`` codes (into the code bytes), B int32 ``m``
-    and B int32 ``n``, then every task's ``a`` codes and every task's
-    ``b`` codes back to back. ``split_packed`` gives the six views.
-
-    ``pin_memory`` packs into page-locked memory, so that one copy to the
-    card with ``non_blocking=True`` neither waits for the stream nor
-    blocks the host.
-    """
-    order = launch_order(tasks)
-    nb = len(tasks)
-    m = np.array([tasks[t][0].size for t in order], dtype=np.int32)
-    n = np.array([tasks[t][1].size for t in order], dtype=np.int32)
-    a_bytes = int(m.sum(dtype=np.int64))
-    b_bytes = int(n.sum(dtype=np.int64))
-    a_off = np.zeros(nb, dtype=np.int64)
-    b_off = np.full(nb, a_bytes, dtype=np.int64)
-    a_off[1:] = np.cumsum(m[:-1], dtype=np.int64)
-    b_off[1:] += np.cumsum(n[:-1], dtype=np.int64)
-    head = 24 * nb
-    # a spare byte keeps the code section non-empty when every task is empty
-    buf = torch.empty(head + a_bytes + b_bytes + 1, dtype=torch.uint8, pin_memory=pin_memory)
-    raw = buf.numpy()
-    raw[: 8 * nb].view(np.int64)[:] = a_off
-    raw[8 * nb : 16 * nb].view(np.int64)[:] = b_off
-    raw[16 * nb : 20 * nb].view(np.int32)[:] = m
-    raw[20 * nb : head].view(np.int32)[:] = n
-    codes = [np.asarray(tasks[t][0], np.uint8) for t in order]
-    codes += [np.asarray(tasks[t][1], np.uint8) for t in order]
-    codes.append(np.zeros(1, np.uint8))
-    np.concatenate(codes, out=raw[head:])
-    return buf, order
-
-
-def split_packed(buf: torch.Tensor, nb: int) -> tuple[torch.Tensor, ...]:
-    """The six views of a staging buffer (on any device) that the kernel
-    takes: (a_all, b_all) uint8 code bytes (the same bytes: the offsets
-    tell them apart), (a_off, b_off) int64 and (m, n) int32."""
-    codes = buf[24 * nb :]
-    return (
-        codes,
-        codes,
-        buf[: 8 * nb].view(torch.int64),
-        buf[8 * nb : 16 * nb].view(torch.int64),
-        buf[16 * nb : 20 * nb].view(torch.int32),
-        buf[20 * nb : 24 * nb].view(torch.int32),
-    )
 
 
 def extend_cuda(
@@ -192,17 +131,6 @@ def extend_cuda(
     return out
 
 
-@dataclass
-class Submitted:
-    """A batch on its way: what ``batch_extend_collect`` waits for."""
-
-    out: torch.Tensor | list[Result]  # pinned (B, 5) int32, or CPU results
-    order: np.ndarray | None  # launch position -> caller's index
-    arrived: torch.cuda.Event | None
-    span: spans.Span | None  # extend.device, from submit to the results
-    keep: tuple = ()  # tensors the queued work still reads
-
-
 def _thread_stream(device: torch.device) -> torch.cuda.Stream:
     """This thread's own stream on ``device`` (made at first use), so that
     batches of different pair threads run side by side on the card."""
@@ -219,58 +147,28 @@ def batch_extend_submit(
     *,
     stop_rows: int = STOP_ROWS,
 ) -> Submitted:
-    """Start a batch of extensions: the kernel for a CUDA device (queued,
-    not awaited), the plain version for the CPU (computed here)."""
+    """Start a batch of extensions: the kernel for a CUDA device (queued on
+    this thread's stream, longest task first, not awaited), the plain
+    version for the CPU (computed here)."""
     device = torch.device(device)
     if device.type == "cpu":
-        results = batch_extend_reference(tasks, stop_rows=stop_rows)
-        return Submitted(results, None, None, None)
+        return Submitted(batch_extend_reference(tasks, stop_rows=stop_rows))
     if device.type != "cuda":
         msg = f"no extension path for device {device}"
         raise ValueError(msg)
     if not tasks:
-        return Submitted([], None, None, None)
-    span = spans.begin("extend.device")
-    with _PACK_LOCK:
-        staging, order = pack_tasks(tasks, pin_memory=True)
-        out = torch.empty((len(tasks), 5), dtype=torch.int32, pin_memory=True)
-    stream = _thread_stream(device)
-    with torch.cuda.stream(stream):
-        on_card = staging.to(device, non_blocking=True)
-        result = extend_cuda(*split_packed(on_card, len(tasks)), stop_rows=stop_rows)
-        out.copy_(result, non_blocking=True)
-        arrived = torch.cuda.Event()
-        arrived.record(stream)
-    return Submitted(out, order, arrived, span, keep=(staging, on_card, result))
+        return Submitted([])
+    with torch.cuda.stream(_thread_stream(device)):
+        return submit(partial(extend_cuda, stop_rows=stop_rows), tasks, device, 5,
+                      launch_order(tasks))
 
 
 def batch_extend_collect(state: Submitted) -> list[Result]:
     """Wait for a submitted batch (its own event, nothing device-wide)
     and return the results in the caller's task order."""
     with spans.span("extend.wait"):
-        if state.arrived is not None:
-            state.arrived.synchronize()
-    if state.arrived is None:
-        return state.out  # type: ignore[return-value]
-    spans.finish(state.span)
-    rows = np.empty((len(state.order), 5), dtype=np.int32)
-    rows[state.order] = state.out.numpy()
-    state.keep = ()
-    return [tuple(row) for row in rows.tolist()]
-
-
-def batch_extend_cuda(
-    tasks: list[Task],
-    *,
-    stop_rows: int = STOP_ROWS,
-    device: torch.device | str = "cuda",
-) -> list[Result]:
-    """The kernel over a list of (a, b) code tails; one launch, awaited."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        msg = f"batch_extend_cuda needs a CUDA device, got {device}"
-        raise ValueError(msg)
-    return batch_extend_collect(batch_extend_submit(tasks, device, stop_rows=stop_rows))
+        state.wait()
+    return state.rows()
 
 
 def _pick(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,8 @@ integer. The cell is 1-based and the first maximum in row-major order
 code >= 4 never matches: N == N, IUPAC letters and the padding code 5.
 
 - ``sw_cuda`` launches ``csrc/sw.cu`` on packed tensors (one warp per
-  task, tasks of any length: no shape ladder, no window limit). Inside
+  task, tasks of any length: no shape ladder, no window limit;
+  ``ops/_tasks.pack_tasks`` packs them in the caller's order). Inside
   the one launch a task whose scores fit 16 bits runs two columns a
   register (``uses_packed_lanes``); any other runs in 32-bit words.
 - ``batch_sw_best_reference`` is the plain PyTorch version: row by row
@@ -22,7 +23,8 @@ code >= 4 never matches: N == N, IUPAC letters and the padding code 5.
   of devices it splits the tasks over them (``batch_sw_best_submit`` /
   ``batch_sw_best_collect``), the counterpart of ``dp_jax``'s
   ``_dispatch_sharded``: one contiguous slice a device, in order, each
-  CUDA slice launched on its own device's current stream.
+  CUDA slice sent through ``ops/_tasks.submit`` on its own device's
+  current stream.
 
 The scoring constants are the host DP's (``ops/dp.py``).
 """
@@ -36,18 +38,15 @@ import numpy as np
 import torch
 
 from pyani_plus_tpu_torch.ops._build import load_library
-from pyani_plus_tpu_torch.ops._tasks import Task, check_packed, pack_tasks
+from pyani_plus_tpu_torch.ops._tasks import Submitted, Task, check_packed, submit
 from pyani_plus_tpu_torch.ops.dp import GAP_EXTEND, GAP_OPEN, NEG, PENALTY, REWARD
-from pyani_plus_tpu_torch.utils import spans
 
 __all__ = [
     "batch_sw_best",
     "batch_sw_best_collect",
-    "batch_sw_best_cuda",
     "batch_sw_best_host",
     "batch_sw_best_reference",
     "batch_sw_best_submit",
-    "pack_tasks",
     "reset_counts",
     "sw_cuda",
     "uses_packed_lanes",
@@ -141,22 +140,6 @@ def sw_cuda(
         LAUNCHES += 1
         TASKS += nb
     return out
-
-
-def batch_sw_best_cuda(
-    tasks: list[Task], *, device: torch.device | str = "cuda"
-) -> list[Result]:
-    """The kernel over a list of (fragment, window) tasks; one launch."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        msg = f"batch_sw_best_cuda needs a CUDA device, got {device}"
-        raise ValueError(msg)
-    if not tasks:
-        return []
-    packed = [t.to(device) for t in pack_tasks(tasks)]
-    with spans.span("sw.device"):
-        out = sw_cuda(*packed).cpu()  # synchronises
-    return [tuple(row) for row in out.tolist()]
 
 
 # The plain version pads a chunk of tasks to its longest fragment and
@@ -265,18 +248,12 @@ def slice_bounds(count: int, parts: int) -> list[tuple[int, int]]:
     return list(zip(edges[:-1], edges[1:]))
 
 
-# One part of a split batch: the results of a slice that is done (the
-# plain version's), or a page-locked (b, 3) tensor that a CUDA slice's
-# results are being copied into and the event that marks their arrival.
-Part = tuple[list[Result] | torch.Tensor, "torch.cuda.Event | None"]
-
-
-def batch_sw_best_submit(tasks: list[Task], devices: list) -> list[Part]:
+def batch_sw_best_submit(tasks: list[Task], devices: list) -> list[Submitted]:
     """Start the tasks split over ``devices``: one contiguous slice a
-    device, in order. A CUDA slice is packed into page-locked memory,
-    copied to its device, launched on that device's current stream, and
-    its results are queued back with an event, without waiting; a CPU
-    slice runs the plain version here.
+    device, in order. A CUDA slice goes through ``ops/_tasks.submit`` on
+    that device's current stream (packed, copied, launched and its
+    results queued back with an event, without waiting); a CPU slice
+    runs the plain version here.
 
     The JAX package pads the batch to a multiple of the device count with
     ``PAD_CODE`` rows, since a sharded array needs equal shards. Tasks
@@ -284,46 +261,28 @@ def batch_sw_best_submit(tasks: list[Task], devices: list) -> list[Part]:
     padding: their lengths differ by at most one.
     """
     devices = [torch.device(d) for d in devices]
-    parts: list[Part] = []
+    parts: list[Submitted] = []
     for device, (lo, hi) in zip(devices, slice_bounds(len(tasks), len(devices))):
         chunk = tasks[lo:hi]
         if device.type == "cpu" or not chunk:
-            parts.append((batch_sw_best_reference(chunk), None))
+            parts.append(Submitted(batch_sw_best_reference(chunk)))
             continue
         if device.type != "cuda":
             msg = f"no Smith-Waterman path for device {device}"
             raise ValueError(msg)
-        with torch.cuda.device(device):  # the event and the copy on this card's stream
-            packed = [t.to(device, non_blocking=True) for t in pack_tasks(chunk, pin_memory=True)]
-            out = torch.empty((len(chunk), 3), dtype=torch.int32, pin_memory=True)
-            out.copy_(sw_cuda(*packed), non_blocking=True)
-            arrived = torch.cuda.Event()
-            arrived.record()
-        parts.append((out, arrived))
+        with torch.cuda.device(device):
+            parts.append(submit(sw_cuda, chunk, device, 3))
     return parts
 
 
-def batch_sw_best_collect(parts: list[Part]) -> list[Result]:
+def batch_sw_best_collect(parts: list[Submitted]) -> list[Result]:
     """Wait for each part of a submitted batch (its own event, nothing
     device-wide) and return the results in task order."""
-    results: list[Result] = []
-    for out, arrived in parts:
-        if arrived is not None:
-            arrived.synchronize()
-            out = [tuple(row) for row in out.tolist()]
-        results.extend(out)
-    return results
+    return [row for part in parts for row in part.rows()]
 
 
 def batch_sw_best(tasks: list[Task], device: torch.device | str | list) -> list[Result]:
     """The kernel for a CUDA device, the plain version for the CPU; a
     list of devices splits the tasks over them."""
-    if isinstance(device, (list, tuple)):
-        return batch_sw_best_collect(batch_sw_best_submit(tasks, device))
-    device = torch.device(device)
-    if device.type == "cuda":
-        return batch_sw_best_cuda(tasks, device=device)
-    if device.type == "cpu":
-        return batch_sw_best_reference(tasks)
-    msg = f"no Smith-Waterman path for device {device}"
-    raise ValueError(msg)
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    return batch_sw_best_collect(batch_sw_best_submit(tasks, devices))

@@ -2,7 +2,7 @@
 
 Genomes descend from one random ancestor (one per clade in
 ``write_clade_dir``) at given substitution rates
-(as ``bench.mutate`` does), plus short indels so that the gap states of
+(as ``substitute`` does), plus short indels so that the gap states of
 the alignment DP are exercised, runs of N and scattered IUPAC letters so
 that codes >= 4 are too. FracMinHash sketch sets for the membership Gram
 are drawn directly as hash sets. Everything comes from one numpy seed.
@@ -18,6 +18,15 @@ from pyani_plus_tpu_torch.ops.minhash import Sketch
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _IUPAC = np.frombuffer(b"RYKMSWBDHV", dtype=np.uint8)
+
+
+def substitute(codes: np.ndarray, rate: float, rng: np.random.Generator) -> np.ndarray:
+    """Substitute a `rate` share of 0-3 codes, nothing else: the root
+    ``bench.py``'s ``mutate``, draw for draw."""
+    out = codes.copy()
+    mut = rng.random(out.size) < rate
+    out[mut] = (out[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+    return out
 
 
 def mutate(
@@ -388,6 +397,17 @@ def extension_fuzz_tasks(seed: int, count: int, max_len: int) -> list[tuple[np.n
             mut = rng.random(span) < 0.1
             b[:span][mut] = (b[:span][mut] + 1) % 4
         tasks.append((a, b))
+    return tasks
+
+
+def extension_tasks(rng: np.random.Generator, lanes: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """B1's main shape: 1,500-3,200 rows, every 8th task 9,900, at 12%
+    substitutions (the draws of the root bench.py's extension section)."""
+    tasks = []
+    for i in range(lanes):
+        m = int(rng.integers(1500, 3200)) if i % 8 else 9900
+        a = rng.integers(0, 4, m).astype(np.uint8)
+        tasks.append((a, substitute(a, 0.12, rng)))
     return tasks
 
 

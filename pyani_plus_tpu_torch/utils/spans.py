@@ -5,7 +5,7 @@ A span names one stage of a run (``runner.parse``, ``anim.seed``,
 integers at the same places (``runner.parses``). The recorder is off by
 default. Then ``span`` checks the module flag ``ON`` and returns a shared
 null context: it takes no lock, reads no clock and makes no torch call,
-and ``count``, ``begin`` and ``current`` return at once. Switching it on:
+and ``count`` and ``current`` return at once. Switching it on:
 ``PYANI_TPU_PROFILE`` (``parallel/runner.py``) for its profiler session;
 code through ``ON`` or ``recording()``.
 
@@ -23,25 +23,11 @@ keeps, under one lock taken once at each span's end:
   those of its children on the same thread, which nest and so never
   overlap) and the top seconds (those of the spans without a parent);
 - the integer counters;
-- the most recent ``RECENT`` spans (``recent()``), a bounded list, and
-  apart from it the intervals of the most recent ``RECENT`` batches of
-  the card (``DEVICE_SPANS``), so that host spans never push them out.
+- the most recent ``RECENT`` spans (``recent()``), a bounded list.
 
 ``NAMES`` lists every span and counter the program records; a reader of
 the totals can tell a name the program dropped from one that did not
 occur.
-
-The card's batches are the spans ``<kernel>.device``, from the submit to
-the moment the host has the result, opened only where the batch runs on
-a card. Where the two lie in different calls (``begin`` and ``finish``:
-B1's and ANIb's batches, whose finish may run on another thread), the
-span records the enclosing span as its parent but is no enclosing span
-itself, its time is not taken off its parent's self seconds (the host
-works on meanwhile), and it opens no profiler range (a range must close
-on the thread that opened it, nested; the kernels lie in the trace as
-device events anyway). ``busy_fraction`` reads those batches: the union
-of their intervals over a window, an upper bound of the card's busy
-share.
 
 Clock: start and end are the wall clock in seconds, the start read when
 the span opens and the end the start plus a monotonic duration. That is
@@ -49,8 +35,8 @@ the clock of ``torch.profiler``'s chrome trace, where an event's ``ts``
 plus the file's ``baseTimeNanoseconds`` is the wall clock in
 microseconds: on the CPU with torch 2.13, and on the H100 with torch
 2.11 and CUDA 12.8, where the kernels' events are on the same clock.
-While a profiler session is active, each span opened with ``with``
-also opens ``torch.profiler.record_function(<name>)``, so that its range lies in the
+While a profiler session is active, each span also opens
+``torch.profiler.record_function(<name>)``, so that its range lies in the
 same trace as the kernels, for every thread the session traces. The
 recorded start is read just after the range opens and the end just after
 it closes. On a thread that holds the interpreter's lock alone they lie
@@ -75,9 +61,7 @@ import torch
 
 ON = False
 RECENT = 65536
-DEVICE_SPANS = ("extend.device", "sw.device", "gram.device")
 NAMES = frozenset((
-    *DEVICE_SPANS,
     # parallel/runner.py
     "runner.md5", "runner.parse", "runner.parses", "runner.genome_rows", "runner.load",
     "runner.compute", "runner.store", "runner.cache",
@@ -87,7 +71,7 @@ NAMES = frozenset((
     # ops/suffix.py
     "anim.seed_lanes", "anim.seed_rewalked",
     # methods/sourmash.py, ops/minhash.py
-    "sourmash.sketch", "sourmash.sketches", "gram.prepare",
+    "sourmash.sketch", "sourmash.sketches", "gram.prepare", "gram.device",
     # methods/anib.py
     "anib.index", "anib.candidates", "anib.join", "anib.submit", "sw.wait", "anib.stats",
     "anib.drain", "anib.fragments",
@@ -100,7 +84,6 @@ _IDS = itertools.count(1)
 _TOTALS: dict[str, list[int]] = {}  # name -> [count, ns, self ns, top ns]
 _COUNTERS: dict[str, int] = {}
 _RECENT: deque[Record] = deque(maxlen=RECENT)
-_DEVICE: deque[tuple[float, float]] = deque(maxlen=RECENT)  # the card's batches
 
 
 class Record(NamedTuple):
@@ -136,10 +119,9 @@ def _stack() -> list[Span]:
 
 
 class Span:
-    """An open span; a context manager (``span``) or a handle (``begin``)."""
+    """An open span, a context manager (``span``)."""
 
-    __slots__ = ("_kids", "_range", "_stacked", "_t0", "id", "name", "parent", "request",
-                 "start", "thread")
+    __slots__ = ("_kids", "_range", "_t0", "id", "name", "parent", "request", "start", "thread")
 
     def __init__(self, name: str, parent: Span | None, request: tuple | None) -> None:
         self.id = next(_IDS)
@@ -149,21 +131,23 @@ class Span:
         self.thread = threading.get_native_id()
         self._kids = 0
         self._range = None
-        self._stacked = False
 
-    def _open(self) -> None:
-        if self._stacked and profiling():
+    def __enter__(self) -> Span:
+        if profiling():
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
         self.start = time.time_ns()
         self._t0 = time.perf_counter_ns()
+        _stack().append(self)
+        return self
 
-    def _close(self) -> None:
+    def __exit__(self, *exc) -> None:
+        _stack().pop()
         if self._range is not None:
             self._range.__exit__(None, None, None)
         ns = time.perf_counter_ns() - self._t0
         parent = self.parent
-        if self._stacked and parent is not None and parent.thread == self.thread:
+        if parent is not None and parent.thread == self.thread:
             parent._kids += ns
         record = Record(self.id, self.name, self.start * 1e-9, (self.start + ns) * 1e-9,
                         self.thread, None if parent is None else parent.id, self.request)  # fmt: skip
@@ -177,18 +161,6 @@ class Span:
             if parent is None:
                 total[3] += ns
             _RECENT.append(record)
-            if self.name in DEVICE_SPANS:
-                _DEVICE.append((record.start, record.end))
-
-    def __enter__(self) -> Span:
-        self._stacked = True
-        self._open()
-        _stack().append(self)
-        return self
-
-    def __exit__(self, *exc) -> None:
-        _stack().pop()
-        self._close()
 
 
 def span(name: str, *, parent: Span | None = None, request: tuple | None = None):
@@ -206,23 +178,6 @@ def current() -> Span | None:
         return None
     stack = _stack()
     return stack[-1] if stack else None
-
-
-def begin(name: str) -> Span | None:
-    """Open a span that ``finish`` closes, maybe in another call or on
-    another thread; it opens no profiler range. None when the recorder is
-    off."""
-    if not ON:
-        return None
-    handle = Span(name, current(), None)
-    handle._open()
-    return handle
-
-
-def finish(handle: Span | None) -> None:
-    """Close a span that ``begin`` opened."""
-    if handle is not None:
-        handle._close()
 
 
 def count(name: str, n: int = 1) -> None:
@@ -267,36 +222,3 @@ def reset() -> None:
         _TOTALS.clear()
         _COUNTERS.clear()
         _RECENT.clear()
-        _DEVICE.clear()
-
-
-def now() -> float:
-    """The spans' clock: wall-clock seconds."""
-    return time.time()
-
-
-def busy_fraction(window_start: float, window_end: float | None = None) -> float:
-    """The union of the card's recent batches (``DEVICE_SPANS``, from submit
-    to result), clipped to the window, over the window."""
-    if window_end is None:
-        window_end = now()
-    length = window_end - window_start
-    if length <= 0:
-        return 0.0
-    with _LOCK:
-        batches = list(_DEVICE)
-    intervals = sorted(
-        (max(s, window_start), min(e, window_end)) for s, e in batches if e > window_start and s < window_end
-    )
-    busy = 0.0
-    cur_s = cur_e = None
-    for s, e in intervals:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return min(1.0, busy / length)

@@ -27,6 +27,7 @@ from pyani_plus_tpu.native import band_dp_native
 from pyani_plus_tpu.ops.extend import EXTEND, MATCH, MISMATCH, OPEN
 from pyani_plus_tpu_torch.ops import _build
 from pyani_plus_tpu_torch.ops import extend as ext
+from pyani_plus_tpu_torch.ops._tasks import Submitted, pack_tasks
 from pyani_plus_tpu_torch.ops.extend_host import extend_errors as port_extend_errors
 from pyani_plus_tpu_torch.synthetic import extension_fuzz_tasks
 
@@ -129,10 +130,7 @@ def test_batch_extend_dispatch_cpu_and_errors() -> None:
     with pytest.raises(ValueError, match="no extension path"):
         ext.batch_extend(tasks, "meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        ext.batch_extend_cuda(tasks, device="cpu")
-    staging, _order = ext.pack_tasks(tasks)
-    with pytest.raises(ValueError, match="CUDA device"):
-        ext.extend_cuda(*ext.split_packed(staging, len(tasks)))
+        ext.extend_cuda(*pack_tasks(tasks, ext.launch_order(tasks)).views())
 
 
 def test_pack_tasks_layout() -> None:
@@ -141,11 +139,13 @@ def test_pack_tasks_layout() -> None:
     tasks = [(np.arange(3, dtype=np.uint8), np.arange(5, dtype=np.uint8)),
              (np.arange(4, dtype=np.uint8) + 10, np.arange(2, dtype=np.uint8) + 20),
              (np.zeros(0, np.uint8), np.arange(1, dtype=np.uint8) + 30)]
-    staging, order = ext.pack_tasks(tasks)
+    order = ext.launch_order(tasks)
     assert order.tolist() == [1, 0, 2]
+    packed = pack_tasks(tasks, order)
+    staging = packed.buf
     assert staging.dtype == torch.uint8 and staging.dim() == 1
     assert staging.numel() == 24 * 3 + (4 + 3 + 0) + (2 + 5 + 1) + 1
-    a_all, b_all, a_off, b_off, m, n = ext.split_packed(staging, 3)
+    a_all, b_all, a_off, b_off, m, n = packed.views()
     assert a_all.data_ptr() == b_all.data_ptr() == staging.data_ptr() + 72
     assert m.tolist() == [4, 3, 0] and n.tolist() == [2, 5, 1]
     assert a_off.tolist() == [0, 4, 7] and b_off.tolist() == [7, 9, 14]
@@ -185,7 +185,7 @@ def test_collect_restores_the_callers_order() -> None:
     order = np.array([2, 0, 3, 1])
     out = torch.tensor([[p, 10 * p, 0, 0, p] for p in range(4)], dtype=torch.int32)
     event = _FakeEvent()
-    state = ext.Submitted(out, order, event, None, keep=(out,))
+    state = Submitted(out, order, event, keep=(out,))
     got = ext.batch_extend_collect(state)
     assert event.waited == 1 and state.keep == ()
     assert got == [(1, 10, 0, 0, 1), (3, 30, 0, 0, 3), (0, 0, 0, 0, 0), (2, 20, 0, 0, 2)]
@@ -359,9 +359,9 @@ def test_cuda_kernel_matches_reference() -> None:
         tasks.append((a, b))
     assert not ext.uses_packed_fields(tasks[-1])
     before = ext.LAUNCHES
-    got = ext.batch_extend_cuda(tasks)
+    got = ext.batch_extend(tasks, "cuda")
     torch.cuda.synchronize()
     assert ext.LAUNCHES == before + 1
     assert got == [_native(x, y) for x, y in tasks]
     small = [t for t in tasks if t[0].size <= 1100]  # the plain version's row loop is slow
-    assert ext.batch_extend_cuda(small) == ext.batch_extend_reference(small)
+    assert ext.batch_extend(small, "cuda") == ext.batch_extend_reference(small)

@@ -52,7 +52,7 @@ def test_sources_were_found() -> None:
                          "ops/minimizers", "ops/fastani_map", "ops/mm2", "methods/fastani",
                          "methods/skani", "methods/animinimap2", "methods/external_alignment",
                          "parallel/distributed", "parallel/tiles", "analysis/skani_debias_sim",
-                         "graft_entry", "bench"))):  # fmt: skip
+                         "graft_entry"))):  # fmt: skip
         assert expected in SOURCES
 
 

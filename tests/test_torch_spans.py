@@ -8,11 +8,7 @@
   under 8 threads.
 - Its clock is the profiler's: in a CPU ``torch.profiler`` session each
   span's start and end equal its range's ``ts`` plus the file's
-  ``baseTimeNanoseconds`` within 0.1 ms. A batch of the card (``begin``
-  and ``finish``, maybe on two threads) opens no range.
-- ``busy_fraction``: the union of the card's batch spans over a window, as
-  the JAX package's ``utils/devmeter`` case checks it, kept apart from the
-  host's spans.
+  ``baseTimeNanoseconds`` within 0.1 ms.
 - ``NAMES`` is every name the package records.
 - Runs of sourmash and ANIm through ``start_and_run_method`` on synthetic
   genomes: every span of the runner's and the method's stages, the
@@ -89,7 +85,6 @@ def test_off_records_nothing(monkeypatch) -> None:
     with spans.span("a"), spans.span("b"):
         spans.count("c", 3)
         assert spans.current() is None
-        spans.finish(spans.begin("d"))
     monkeypatch.undo()
     assert spans.totals() == {} and spans.counters() == {} and spans.recent() == []
 
@@ -139,19 +134,14 @@ def test_self_seconds_are_less_the_children_on_the_same_thread() -> None:
             handed = spans.current()
             with ThreadPoolExecutor(max_workers=1) as pool:  # another thread: not taken off
                 pool.submit(_touch, "pooled", handed).result()
-            batch = spans.begin("extend.device")  # the card's time: not taken off either
-            time.sleep(0.01)
-            spans.finish(batch)
     totals = spans.totals()
-    outer, child, device = totals["outer"], totals["child"], totals["extend.device"]
+    outer, child = totals["outer"], totals["child"]
     assert child.count == 2 and outer.count == 1
     assert outer.self_seconds == pytest.approx(outer.seconds - child.seconds, abs=1e-9)
-    assert outer.self_seconds > device.seconds >= 0.01
+    assert outer.self_seconds >= 0.01
     assert child.self_seconds == pytest.approx(child.seconds, abs=1e-9)
     assert outer.top_seconds == outer.seconds and child.top_seconds == 0.0
-    assert device.top_seconds == 0.0 and totals["pooled"].top_seconds == 0.0
-    (record,) = [r for r in spans.recent() if r.name == "extend.device"]
-    assert record.parent == next(r.id for r in spans.recent() if r.name == "outer")
+    assert totals["pooled"].top_seconds == 0.0
 
 
 def test_counters_and_totals_add_up_under_8_threads() -> None:
@@ -223,38 +213,15 @@ def test_the_spans_clock_is_the_profilers(tmp_path) -> None:
         assert abs(recorded[name].end - end) < 1e-4, (name, recorded[name].end - end)
 
 
-def test_a_batch_of_the_card_opens_no_range(tmp_path) -> None:
-    """ANIb's batches: begun on the compute thread, several in flight,
-    finished out of order on side threads. They are recorded, each with
-    the span it was begun in, and leave the trace's ranges as they were."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
-                                experimental_config=runner._ALL_THREADS) as prof:  # fmt: skip
-        with spans.recording(), spans.span("column") as column:
-            batches = [spans.begin("sw.device") for _ in range(3)]
-            with ThreadPoolExecutor(max_workers=2) as side:
-                list(side.map(spans.finish, reversed(batches)))
-            with spans.span("after"):
-                pass
-    prof.export_chrome_trace(str(tmp_path / "trace.json"))
-    ranges, _ = _ranges(tmp_path / "trace.json")
-    assert "sw.device" not in ranges and len(ranges["column"]) == len(ranges["after"]) == 1
-    (after,) = ranges["after"]
-    (column_range,) = ranges["column"]
-    assert column_range[0] <= after[0] <= after[1] <= column_range[1]
-    records = [r for r in spans.recent() if r.name == "sw.device"]
-    assert len(records) == 3 and all(r.parent == column.id for r in records)
-    assert spans.busy_fraction(records[0].start, records[-1].end) > 0
-
-
 def _recorded_names() -> set[str]:
-    """The literal first argument of every ``spans.span``, ``spans.begin``
-    and ``spans.count`` call in the package."""
+    """The literal first argument of every ``spans.span`` and
+    ``spans.count`` call in the package."""
     found = set()
     for path in Path(pyani_plus_tpu_torch.__file__).parent.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
                     and isinstance(node.func.value, ast.Name) and node.func.value.id == "spans"
-                    and node.func.attr in ("span", "begin", "count") and node.args
+                    and node.func.attr in ("span", "count") and node.args
                     and isinstance(node.args[0], ast.Constant)):  # fmt: skip
                 found.add(node.args[0].value)
     return found
@@ -262,48 +229,6 @@ def _recorded_names() -> set[str]:
 
 def test_names_are_every_name_the_package_records() -> None:
     assert _recorded_names() == set(spans.NAMES)
-
-
-def test_busy_fraction_is_the_union_of_the_cards_batches(monkeypatch) -> None:
-    """devmeter's case (tests/test_utils.py) on the recorder: batches at
-    [1, 3] and [2, 4] overlap, [6, 7] stands alone, one before the window
-    is ignored, a host span is not counted: 4 busy seconds of 8. The host
-    spans that follow, more than the list of recent spans holds, push no
-    batch out."""
-    clock = {"ns": 1_000_000 * 10**9}
-
-    class FakeTime:
-        @staticmethod
-        def time_ns():
-            return clock["ns"]
-
-        perf_counter_ns = time_ns
-
-        @staticmethod
-        def time():
-            return clock["ns"] * 1e-9
-
-    monkeypatch.setattr(spans, "time", FakeTime)
-    monkeypatch.setattr(spans, "_RECENT", spans.deque(maxlen=4))
-    w0 = spans.now()
-
-    def batch(name, start, end):
-        clock["ns"] = int((w0 + start) * 1e9)
-        handle = spans.begin(name)
-        clock["ns"] = int((w0 + end) * 1e9)
-        spans.finish(handle)
-
-    with spans.recording():
-        batch("extend.device", 1.0, 3.0)
-        batch("gram.device", 2.0, 4.0)
-        batch("sw.device", 6.0, 7.0)
-        batch("extend.device", -5.0, -4.0)
-        batch("anim.seed", 4.0, 6.0)
-        for _ in range(8):
-            batch("runner.store", 7.5, 7.75)
-    assert [r.name for r in spans.recent()] == ["runner.store"] * 4
-    assert spans.busy_fraction(w0, w0 + 8.0) == pytest.approx(0.5)
-    assert spans.busy_fraction(w0 + 8.0, w0 + 9.0) == 0.0
 
 
 def _rows(db) -> list[tuple]:
@@ -414,7 +339,7 @@ def test_anib_under_the_profiler_gives_the_rows_of_a_plain_run(tmp_path, monkeyp
     (trace,) = (tmp_path / "trace").iterdir()
     ranges, _ = _ranges(trace)
     assert len(ranges["runner.compute"]) == 1 and ranges["runner.store"]
-    assert len(ranges["runner.parse"]) == 2 * len(paths) and "sw.device" not in ranges
+    assert len(ranges["runner.parse"]) == 2 * len(paths)
 
 
 @pytest.mark.parametrize("device", ["1", "0"], ids=["pipeline", "host"])

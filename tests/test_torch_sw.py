@@ -20,6 +20,7 @@ import torch
 from pyani_plus_tpu.genomes import encode_sequence
 from pyani_plus_tpu_torch.ops import _build
 from pyani_plus_tpu_torch.ops import sw
+from pyani_plus_tpu_torch.ops._tasks import pack_tasks
 from pyani_plus_tpu_torch.synthetic import sw_pallas_tasks, sw_trim_fuzz_tasks
 
 IUPAC = np.frombuffer(b"ACGTNRYSWKMBDHV", dtype=np.uint8)
@@ -137,9 +138,7 @@ def test_batch_sw_best_dispatch_cpu_and_errors() -> None:
     with pytest.raises(ValueError, match="no Smith-Waterman path"):
         sw.batch_sw_best(tasks, "meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        sw.batch_sw_best_cuda(tasks, device="cpu")
-    with pytest.raises(ValueError, match="CUDA device"):
-        sw.sw_cuda(*sw.pack_tasks(tasks))
+        sw.sw_cuda(*pack_tasks(tasks).views())
     assert (sw.LAUNCHES, sw.TASKS) == before
 
 
@@ -178,7 +177,7 @@ def test_cuda_kernel_matches_reference() -> None:
         tasks.append((q, s))
     assert [sw.uses_packed_lanes(q.size, s.size) for q, s in tasks[-4:]] == [True] + [False] * 3
     before = sw.LAUNCHES
-    got = sw.batch_sw_best_cuda(tasks)
+    got = sw.batch_sw_best(tasks, "cuda")
     torch.cuda.synchronize()
     assert sw.LAUNCHES == before + 1
     want = sw.batch_sw_best_reference(tasks)
@@ -414,7 +413,7 @@ def test_width_rule_is_per_task_in_a_mixed_batch() -> None:
     across a warp whatever the batch holds."""
     sizes = [(1020, 1320), (16361, 16400), (40, 32769), (16400, 16360), (16360, 70000), (20000, 16361)]
     tasks = [(np.zeros(m, np.uint8), np.ones(n, np.uint8)) for m, n in sizes]
-    _, _, q_off, s_off, m, n = sw.pack_tasks(tasks)
+    _, _, q_off, s_off, m, n = pack_tasks(tasks).views()
     assert m.dtype == n.dtype == torch.int32 and q_off[-1] == sum(a for a, _ in sizes[:-1])
     choice = [sw.uses_packed_lanes(a, b) for a, b in zip(m.tolist(), n.tolist())]
     assert choice == [True, False, True, True, True, False]

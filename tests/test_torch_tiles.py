@@ -292,7 +292,7 @@ def test_split_over_one_card_named_twice() -> None:
     before = sw.LAUNCHES
     got = sw.batch_sw_best(tasks, [card, card])
     assert sw.LAUNCHES == before + 2
-    assert got == sw.batch_sw_best_cuda(tasks, device=card)
+    assert got == sw.batch_sw_best(tasks, card)
     assert got == sw.batch_sw_best_reference(tasks)
 
 

@@ -31,10 +31,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from pyani_plus_tpu_torch import backend  # noqa: E402
-from pyani_plus_tpu_torch.bench import extension_tasks  # noqa: E402
 from pyani_plus_tpu_torch.ops import _build  # noqa: E402
 from pyani_plus_tpu_torch.ops import extend as ext  # noqa: E402
 from pyani_plus_tpu_torch.ops.extend_host import EXTEND, MATCH, MISMATCH, OPEN  # noqa: E402
+from pyani_plus_tpu_torch.synthetic import extension_tasks  # noqa: E402
 
 
 def build(spec: str, out_dir: Path) -> ctypes.CDLL | None:
@@ -56,8 +56,8 @@ def build(spec: str, out_dir: Path) -> ctypes.CDLL | None:
 
 
 def run(lib: ctypes.CDLL, tasks: list, reps: int = 0) -> tuple[list[tuple], float | None]:
-    staging, order = ext.pack_tasks(tasks)
-    packed = ext.split_packed(staging.cuda(), len(tasks))
+    order = ext.launch_order(tasks)
+    _, packed = chip_smoke.packed_on_card(tasks, order)
     out = torch.empty((len(tasks), 5), dtype=torch.int32, device="cuda")
 
     def launch() -> None:

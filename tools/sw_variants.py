@@ -75,7 +75,7 @@ def build(spec: str, out_dir: Path, sass_dir: Path | None) -> ctypes.CDLL | None
     return lib
 
 
-def run(lib: ctypes.CDLL, packed: list[torch.Tensor], *,
+def run(lib: ctypes.CDLL, packed: tuple[torch.Tensor, ...], *,
         reps: int = 0) -> tuple[list[tuple], float | None]:
     nb = packed[4].numel()
     out = torch.empty((nb, 3), dtype=torch.int32, device="cuda")
@@ -129,7 +129,7 @@ def main() -> int:
     order = np.random.default_rng(chip_smoke.SEED + 5).permutation(BIG * len(tasks)) % len(tasks)
     big = [tasks[t] for t in order]
     host_big = [host_main[t] for t in order]
-    on_card = {name: [t.cuda() for t in sw.pack_tasks(batch)]
+    on_card = {name: chip_smoke.packed_on_card(batch)[1]
                for name, batch in (("fuzz", fuzz), ("main", tasks), ("big", big))}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {spec: build(spec, Path(tmp), sass_dir) for spec in args}
