@@ -423,10 +423,22 @@ def sam_stream_ms_native(
 def _bind_sam_lanes(lib) -> None:
     if getattr(lib, "_sam_lanes_bound", False):
         return
+    _bind_sam(lib)
     lib.sam_ms_lanes.restype = ctypes.c_int32
     lib.sam_ms_lanes.argtypes = [ctypes.c_int64]
     lib.sam_stream_ms_lanes.restype = ctypes.c_int64
     lib.sam_stream_ms_lanes.argtypes = lib.sam_stream_ms.argtypes
+    lib.sam_select_mums.restype = ctypes.c_int64
+    lib.sam_select_mums.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
     lib._sam_lanes_bound = True
 
 
@@ -453,6 +465,53 @@ def sam_stream_ms_lanes_native(
         ref_start.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     return ms_len, ref_start, int(index._lib.sam_ms_lanes(m)), int(rewalked)
+
+
+def sam_select_mums_native(
+    ms_len: np.ndarray,
+    ref_start: np.ndarray,
+    ref: np.ndarray,
+    qry: np.ndarray,
+    min_len: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int] | None:
+    """MUMs from ``sam_stream_ms_lanes_native``'s arrays in one native
+    linear pass -> (ref_start, qry_start, length, candidates), or None
+    without the library.
+
+    The triples are int64, in ascending ref start, and as many as the
+    MUMs; ``candidates`` counts the query starts of length >= min_len
+    with a unique ref start that the selection took in. The call writes
+    its result over the fronts of ``ms_len`` (int32) and ``ref_start``
+    (int64) where they come in with those types, contiguous: the stream's
+    arrays are spent.
+    """
+    if ms_len.shape != ref_start.shape or ms_len.ndim != 1:
+        raise ValueError(f"stream arrays of shapes {ms_len.shape} and {ref_start.shape}")
+    if ms_len.size > qry.size:
+        raise ValueError(f"{ms_len.size} stream positions for a query of {qry.size}")
+    lib = _load_suffix()
+    if lib is None:
+        return None
+    _bind_sam_lanes(lib)
+    ms_len = np.ascontiguousarray(ms_len, dtype=np.int32)
+    ref_start = np.ascontiguousarray(ref_start, dtype=np.int64)
+    ref = np.ascontiguousarray(ref, dtype=np.uint8)
+    qry = np.ascontiguousarray(qry, dtype=np.uint8)
+    candidates = ctypes.c_int64(0)
+    k = lib.sam_select_mums(
+        ms_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ref_start.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ms_len.size,
+        ref.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ref.size,
+        qry.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        min_len,
+        ctypes.byref(candidates),
+    )
+    if k < 0:
+        raise MemoryError(f"no table over a reference of {ref.size} bases")
+    packed = ref_start[:k]
+    return packed & 0xFFFFFFFF, packed >> 32, ms_len[:k].astype(np.int64), candidates.value
 
 
 def sam_stream_maxmatch_native(

@@ -17,6 +17,8 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdlib>
+#include <memory>
 #include <vector>
 
 extern "C" {
@@ -576,6 +578,63 @@ int64_t sam_stream_ms_lanes(const void *h, const uint8_t *qry, int64_t m,
     }
   }
   return rewalked;
+}
+
+// ANIm's MUMs from the matching statistics of sam_stream_ms(_lanes), in
+// two linear passes where a sort over every candidate would be (ops/
+// suffix.py mum_matches_indexed).  A candidate is a query start j with
+// ms_len[j] >= min_len and a ref start i = ref_start[j] >= 0.  Pass 1
+// keeps, per ref start, the longest candidate in one word of a table
+// over ref (length << 32 | j + 1; the low half 0 where a second
+// candidate ties that length: the match then repeats in qry, and the
+// group keeps none).  Pass 2 walks the table in ascending ref start and
+// keeps each untied maximum that is left-maximal: j == 0, i == 0,
+// ref[i-1] != qry[j-1] or ref[i-1] >= 4 (ambiguous bases never extend a
+// match).  The k MUMs are written over the fronts of the stream arrays,
+// which pass 1 has read in full (k <= the candidates <= m):
+// ref_start[t] = j << 32 | i and ms_len[t] = the length, so positions
+// stay below 2^31 (the automaton's are int32).  A ref start outside
+// [0, n) is no candidate.  *candidates = the candidates; returns k, or
+// -1 where the table could not be allocated.
+int64_t sam_select_mums(int32_t *ms_len, int64_t *ref_start, int64_t m,
+                        const uint8_t *ref, int64_t n, const uint8_t *qry,
+                        int32_t min_len, int64_t *candidates) {
+  // The stream gives a ref start only to a match of a base or more, so a
+  // candidate's length is never 0 and a word of 0 is an empty ref start.
+  if (min_len < 1) min_len = 1;
+  // calloc: the pages of ref starts that no candidate hits (most of them
+  // on a minus strand) are never written, and so never allocated.
+  std::unique_ptr<uint64_t, decltype(&std::free)> table(
+      (uint64_t *)std::calloc(n > 0 ? n : 1, sizeof(uint64_t)), &std::free);
+  uint64_t *best = table.get();
+  if (best == nullptr) return -1;
+  int64_t found = 0;
+  for (int64_t j = 0; j < m; j++) {
+    const int32_t l = ms_len[j];
+    const int64_t i = ref_start[j];
+    if (l < min_len || i < 0 || i >= n) continue;
+    found++;
+    const uint64_t word = best[i];
+    const uint32_t top = (uint32_t)(word >> 32);
+    if ((uint32_t)l > top)
+      best[i] = (uint64_t)l << 32 | (uint64_t)(j + 1);
+    else if ((uint32_t)l == top)
+      best[i] = word >> 32 << 32;  // tied
+  }
+  *candidates = found;
+  int64_t k = 0;
+  for (int64_t i = 0; i < n; i++) {
+    const uint64_t word = best[i];
+    const uint32_t j1 = (uint32_t)word;
+    if (j1 == 0) continue;  // empty or tied
+    const int64_t j = j1 - 1;
+    if (j == 0 || i == 0 || ref[i - 1] != qry[j - 1] || ref[i - 1] >= 4) {
+      ref_start[k] = (int64_t)((uint64_t)j << 32 | (uint64_t)i);
+      ms_len[k] = (int32_t)(word >> 32);
+      k++;
+    }
+  }
+  return k;
 }
 
 // Suffix array of arbitrary int64 symbols (name kept for ABI compat

@@ -254,41 +254,22 @@ def mum_matches_indexed(
     witnesses a repeat of a longer one: only its prefix repeats.)
 
     The stream runs in interleaved lanes (``sam_stream_ms_lanes``, exact
-    to the position); the counters ``anim.seed_lanes`` and
-    ``anim.seed_rewalked`` count its lanes and the positions its
-    boundary fix-up streamed again.
+    to the position); the group rule and left-maximality then run in one
+    native linear pass over its arrays (``sam_select_mums``), in ascending
+    ref start. The counters ``anim.seed_lanes`` and ``anim.seed_rewalked``
+    count the stream's lanes and the positions its boundary fix-up
+    streamed again, ``anim.seed_candidates`` the candidates the selection
+    took in.
     """
-    from pyani_plus_tpu_torch.native import sam_stream_ms_lanes_native
+    from pyani_plus_tpu_torch.native import sam_select_mums_native, sam_stream_ms_lanes_native
 
     ms_len, ref_start, lanes, rewalked = sam_stream_ms_lanes_native(index, qry)
     if lanes > 1:
         spans.count("anim.seed_lanes", lanes)
         spans.count("anim.seed_rewalked", rewalked)
-    j = np.nonzero((ms_len >= min_len) & (ref_start >= 0))[0]
-    if not j.size:
-        return (np.empty(0, np.int64),) * 3
-    i = ref_start[j]
-    length = ms_len[j].astype(np.int64)
-    # Strict max length within each ref-start group = unique in qry.
-    order = np.lexsort((length, i))
-    i_s, l_s = i[order], length[order]
-    last_of_run = np.empty(order.size, dtype=bool)
-    last_of_run[:-1] = i_s[1:] != i_s[:-1]
-    last_of_run[-1] = True
-    strict = np.ones(order.size, dtype=bool)
-    strict[1:] = (i_s[1:] != i_s[:-1]) | (l_s[1:] > l_s[:-1])
-    keep_sorted = order[last_of_run & strict]
-    i, j, length = i[keep_sorted], j[keep_sorted], length[keep_sorted]
-    left_r = ref[np.maximum(i - 1, 0)]
-    left_q = qry[np.maximum(j - 1, 0)]
-    left_max = (
-        (j == 0)
-        | (i == 0)
-        | (left_r != left_q)
-        | (left_r >= 4)  # ambiguous bases never equal anything
-    )
-    keep = np.nonzero(left_max)[0]
-    return i[keep], j[keep].astype(np.int64), length[keep]
+    i, j, length, candidates = sam_select_mums_native(ms_len, ref_start, ref, qry, min_len)
+    spans.count("anim.seed_candidates", candidates)
+    return i, j, length
 
 
 def max_matches_indexed(

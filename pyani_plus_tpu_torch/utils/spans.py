@@ -69,7 +69,7 @@ NAMES = frozenset((
     "anim.pair", "anim.seed", "anim.cluster", "anim.chain", "anim.extend", "anim.filter",
     "anim.native_gaps", "extend.wait",
     # ops/suffix.py
-    "anim.seed_lanes", "anim.seed_rewalked",
+    "anim.seed_lanes", "anim.seed_rewalked", "anim.seed_candidates",
     # methods/sourmash.py, ops/minhash.py
     "sourmash.sketch", "sourmash.sketches", "gram.prepare", "gram.device",
     # methods/anib.py

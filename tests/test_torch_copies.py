@@ -18,7 +18,8 @@ equals the original, and each ``_bind_<name>`` sets the argument types
 that the original ``_load_<name>`` sets, but for the port's one addition:
 ``chain_and_fill_native``, whose library, ``band``, also took over the
 consistent anchor chain DP from ``chain``, and the lane stream of the
-suffix automaton, ``_bind_sam_lanes`` and ``sam_stream_ms_lanes_native``.
+suffix automaton and the MUM selection after it, ``_bind_sam_lanes``,
+``sam_stream_ms_lanes_native`` and ``sam_select_mums_native``.
 """
 
 from __future__ import annotations
@@ -71,11 +72,13 @@ LOADERS = {
 # The consistent anchor chain DP it runs moved with it from the chain
 # library to the band library: its binding and its wrapper's loader.
 # And ANIm's matching-statistics stream in interleaved lanes
-# (native/suffix.cpp's sam_stream_ms_lanes): its binder and wrapper. The
-# serial stream, its binding in _bind_sam and its wrapper stay copies,
-# held to the originals below; the lane stream is held to them position
-# for position by tests/test_torch_sam_lanes.py.
-PORT_ONLY = {"chain_and_fill_native", "_bind_sam_lanes", "sam_stream_ms_lanes_native"}
+# (native/suffix.cpp's sam_stream_ms_lanes) and the MUM selection over its
+# arrays (sam_select_mums): their binder and wrappers. The serial stream,
+# its binding in _bind_sam and its wrapper stay copies, held to the
+# originals below; the lane stream is held to them position for position
+# by tests/test_torch_sam_lanes.py, the selection to the numpy selection
+# it replaced by tests/test_torch_mum_index.py.
+PORT_ONLY = {"chain_and_fill_native", "_bind_sam_lanes", "sam_stream_ms_lanes_native", "sam_select_mums_native"}
 MOVED = "anchor_chain_dp"
 
 

@@ -7,7 +7,10 @@ the port's indexed path, the port's combined-suffix-array oracle
 (``maximal_matches``) and the JAX package's indexed path, and holds the
 three match sets equal; the cache case holds the port's
 ``SeedIndexCache`` to the JAX package's eviction and reverse-complement
-rules. The JAX file skips at import time without the suffix automaton;
+rules. The selection cases hold the native pass that turns the stream's
+arrays into MUMs (``sam_select_mums_native``) to the numpy selection it
+replaced, kept here as its oracle: the same arrays in the same order, and
+the candidates it counts. The JAX file skips at import time without the suffix automaton;
 these cases decide nothing at import: an automaton that does not build
 fails them.
 """
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 
 import pyani_plus_tpu.ops.suffix as jax_suffix
+from pyani_plus_tpu_torch import native
 from pyani_plus_tpu_torch.genomes import complement_codes
 from pyani_plus_tpu_torch.ops.suffix import (
     SEED_CACHE,
@@ -113,3 +117,126 @@ def test_cache_dedupes_and_evicts() -> None:
         assert rc is cache.rc_for(arrays[0])
         np.testing.assert_array_equal(rc, complement_codes(arrays[0])[::-1])
     assert list(caches[0]._sam) == list(caches[1]._sam)
+
+
+def _numpy_selection(ms_len, ref_start, ref, qry, min_len):
+    """``mum_matches_indexed``'s numpy selection before the native pass:
+    a sort by ref start, each group's strict maximum length, then
+    left-maximality -> ((i, j, length), candidates)."""
+    j = np.nonzero((ms_len >= min_len) & (ref_start >= 0))[0]
+    if not j.size:
+        return (np.empty(0, np.int64),) * 3, 0
+    i = ref_start[j]
+    length = ms_len[j].astype(np.int64)
+    order = np.lexsort((length, i))
+    i_s, l_s = i[order], length[order]
+    last_of_run = np.empty(order.size, dtype=bool)
+    last_of_run[:-1] = i_s[1:] != i_s[:-1]
+    last_of_run[-1] = True
+    strict = np.ones(order.size, dtype=bool)
+    strict[1:] = (i_s[1:] != i_s[:-1]) | (l_s[1:] > l_s[:-1])
+    keep_sorted = order[last_of_run & strict]
+    candidates = j.size
+    i, j, length = i[keep_sorted], j[keep_sorted], length[keep_sorted]
+    left_r = ref[np.maximum(i - 1, 0)]
+    left_q = qry[np.maximum(j - 1, 0)]
+    left_max = (j == 0) | (i == 0) | (left_r != left_q) | (left_r >= 4)
+    keep = np.nonzero(left_max)[0]
+    return (i[keep], j[keep].astype(np.int64), length[keep]), candidates
+
+
+def _hand(n: int, m: int, rows, lefts=(), fill=None):
+    """Stream arrays of m positions against a random ref of n bases with
+    the candidates ``rows`` (j, i, length) and a ref start of -1
+    elsewhere, at the length ``fill`` or one below min_len; each of
+    ``lefts`` (j, i, ref base, query base) sets the left bases of one."""
+    rng = np.random.default_rng(n + m)
+    ref = rng.integers(0, 4, n).astype(np.uint8)
+    qry = rng.integers(0, 4, m).astype(np.uint8)
+    ms_len = rng.integers(0, 12, m).astype(np.int32) if fill is None else np.full(m, fill, np.int32)
+    ref_start = np.full(m, -1, np.int64)
+    for j, i, length in rows:
+        ms_len[j], ref_start[j] = length, i
+        if i and j:  # left-maximal unless ``lefts`` says otherwise
+            qry[j - 1] = (ref[i - 1] + 1) % 4
+    for j, i, r, q in lefts:
+        ref[i - 1], qry[j - 1] = r, q
+    return ms_len, ref_start, ref, qry
+
+
+def _random_groups():
+    """Many candidates in few ref-start groups: ties, groups of several,
+    ref starts of -1 and lengths about min_len."""
+    rng = np.random.default_rng(31)
+    n, m = 400, 3000
+    ref = rng.integers(0, 5, n).astype(np.uint8)
+    qry = rng.integers(0, 5, m).astype(np.uint8)
+    ms_len = rng.integers(16, 25, m).astype(np.int32)
+    ref_start = rng.integers(-1, n, m).astype(np.int64)
+    return ms_len, ref_start, ref, qry
+
+
+def _streamed(ref: np.ndarray, qry: np.ndarray):
+    ms_len, ref_start, _lanes, _rewalked = native.sam_stream_ms_lanes_native(native.sam_build_native(ref), qry)
+    return ms_len, ref_start, ref, qry
+
+
+def _query_repeats():
+    rng = np.random.default_rng(32)
+    ref = rng.integers(0, 4, 30_000).astype(np.uint8)
+    # ref[2000:6000] twice with one right context: a tie, and no MUM
+    parts = [ref[2_000:6_000], ref[9_000:9_500], ref[2_000:6_000], ref[9_000:9_400], ref[20_000:20_700]]
+    return _streamed(ref, np.concatenate(parts))
+
+
+def _strains_pair():
+    """A 200 kb genome and a strain of it at 0.5% substitutions: almost
+    every query position a candidate, as in ANIm's strains cell."""
+    rng = np.random.default_rng(33)
+    ref = rng.integers(0, 4, 200_000).astype(np.uint8)
+    qry = ref.copy()
+    mut = rng.random(qry.size) < 0.005
+    qry[mut] = (qry[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+    return _streamed(ref, qry)
+
+
+SELECTIONS = {
+    "empty-query": lambda: _hand(100, 0, []),
+    "no-candidates": lambda: _hand(100, 80, []),
+    "all-below-min-len": lambda: _hand(100, 80, [(j, j, 19) for j in range(80)]),
+    "ref-start-minus-one": lambda: _hand(100, 80, [(40, 7, 40)], fill=40),
+    "tie-at-the-maximum": lambda: _hand(100, 60, [(5, 30, 25), (20, 30, 25), (8, 30, 22), (9, 60, 30), (30, 60, 30), (40, 60, 31)]),
+    "group-of-three": lambda: _hand(100, 60, [(3, 40, 20), (15, 40, 27), (33, 40, 24), (50, 41, 21)]),
+    "i-or-j-zero": lambda: _hand(100, 60, [(0, 50, 30), (12, 0, 25), (20, 70, 22)], lefts=[(20, 70, 2, 2)]),
+    "ambiguous-left-bases": lambda: _hand(
+        100, 60, [(5, 20, 30), (15, 40, 30), (25, 60, 30), (35, 80, 30)],
+        lefts=[(5, 20, 4, 1), (15, 40, 3, 4), (25, 60, 4, 4), (35, 80, 1, 1)],
+    ),
+    "random-groups": _random_groups,
+    "query-repeats": _query_repeats,
+    "strains-pair-200kb": _strains_pair,
+}
+KEPT = {  # the MUMs some cases must keep, (i, j, length): none is vacuous
+    "ref-start-minus-one": [(7, 40, 40)],
+    "tie-at-the-maximum": [(60, 40, 31)],
+    "group-of-three": [(40, 15, 27), (41, 50, 21)],
+    "i-or-j-zero": [(0, 12, 25), (50, 0, 30)],
+    "ambiguous-left-bases": [(20, 5, 30), (40, 15, 30), (60, 25, 30)],
+}
+
+
+@pytest.mark.parametrize("case", list(SELECTIONS))
+def test_native_selection_equals_the_numpy_selection(case: str) -> None:
+    ms_len, ref_start, ref, qry = SELECTIONS[case]()
+    (want_i, want_j, want_len), want_candidates = _numpy_selection(ms_len, ref_start, ref, qry, 20)
+    i, j, length, candidates = native.sam_select_mums_native(ms_len.copy(), ref_start.copy(), ref, qry, 20)
+    for got, want in ((i, want_i), (j, want_j), (length, want_len)):
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+    assert candidates == want_candidates
+    if case in KEPT:
+        assert list(zip(i.tolist(), j.tolist(), length.tolist())) == KEPT[case]
+    if case in ("query-repeats", "strains-pair-200kb", "random-groups"):
+        assert i.size and candidates > 5 * i.size
+    if case == "query-repeats":
+        assert 2_000 not in i.tolist() and 9_000 in i.tolist()

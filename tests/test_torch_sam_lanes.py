@@ -7,7 +7,8 @@ lockstep and mends each lane's right end from the lane to its right. Each
 case gives one input to it, to the port's serial ``sam_stream_ms`` and to
 the JAX package's, and holds ``ms_len`` and ``ref_start`` equal at every
 position; it also holds the MUMs of ``mum_matches_indexed``, which streams
-in lanes, to the suffix-array oracle ``maximal_matches``. The cases: a
+in lanes, to the suffix-array oracle ``maximal_matches``, and its counters
+to the lanes, the positions streamed again and the candidates. The cases: a
 fuzz over seeds, a self-pair (every boundary inside one match), one MUM
 across several lanes, N runs across lane boundaries and an N at a lane's
 either end, queries of one lane or less (0, 1 and 32,767 bases: the
@@ -136,7 +137,10 @@ def test_lanes_equal_the_serial_stream(case: str) -> None:
     with spans.recording():
         got = mum_matches_indexed(index, ref, qry, 20)
     after = spans.counters()
-    grown = {name: after.get(name, 0) - before.get(name, 0) for name in ("anim.seed_lanes", "anim.seed_rewalked")}
-    assert grown == {"anim.seed_lanes": lanes if lanes > 1 else 0, "anim.seed_rewalked": rewalked}
+    names = ("anim.seed_lanes", "anim.seed_rewalked", "anim.seed_candidates")
+    grown = {name: after.get(name, 0) - before.get(name, 0) for name in names}
+    candidates = int(np.count_nonzero((ms_len >= 20) & (ref_start >= 0)))
+    assert grown == {"anim.seed_lanes": lanes if lanes > 1 else 0, "anim.seed_rewalked": rewalked,
+                     "anim.seed_candidates": candidates}  # fmt: skip
     expected = maximal_matches(ref, qry, 20, unique_ref=True, unique_qry=True)
     assert set(zip(*(a.tolist() for a in got))) == set(zip(*(a.tolist() for a in expected)))

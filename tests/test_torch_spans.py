@@ -294,8 +294,8 @@ def test_an_anim_run_records_every_stage_with_its_pair(tmp_path, monkeypatch) ->
     totals = spans.totals()
     assert set(RUNNER + ANIM) <= set(totals), sorted(totals)
     counters = spans.counters()
-    assert sorted(counters) == ["anim.native_gaps", "runner.parses"]
-    assert counters["runner.parses"] == 4 and counters["anim.native_gaps"] > 0
+    assert sorted(counters) == ["anim.native_gaps", "anim.seed_candidates", "runner.parses"]
+    assert counters["runner.parses"] == 4 and counters["anim.native_gaps"] > 0 and counters["anim.seed_candidates"] > 0
     md5 = {row[0] for row in plain}
     records = spans.recent()
     pairs = {r.request for r in records if r.name == "anim.pair"}
