@@ -11,7 +11,10 @@ window then drives ``pyani_plus_tpu_torch.parallel.runner
 whole all-vs-all run of the collection into a new SQLite store, and
 iterations begin while less than ``--seconds`` has passed. Once the
 window has closed, the rows of every iteration are read back and judged
-against the plain reference of ``anibench/reference/<method>.py``.
+against the plain reference of ``anibench/reference/<method>.py``. A cell
+whose configuration has ``"launch": K`` runs as a process group of K
+ranks, one card a rank, as ``launch -n K`` runs its workers
+(``anibench/group.py``).
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted`` (ordered pairs of the iterations), ``failed`` (pairs
@@ -206,17 +209,20 @@ def read_rows(db: Path) -> dict[tuple[str, str], dict]:
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *, card: bool = True, overrides: dict | None = None) -> dict:  # noqa: C901, PLR0912, PLR0915
     """One run; returns the result line as a dict. ``card=False`` (tests
     only) skips the look for a CUDA card; ``overrides`` replaces keys of
-    the workload's collection (tests only)."""
+    the workload's collection (tests only). A configuration with
+    ``launch`` runs as a process group (``group.run_group``)."""
+    bench, workload, config = cell(name)
+    if config.get("launch"):
+        from anibench import group
+
+        return group.run_group(name, seed, seconds, trace, card=card, overrides=overrides)
     import torch
 
     from anibench import gen, judge
 
-    bench, workload, config = cell(name)
     entry = next(w for w in bench["workloads"] if w["name"] == name)
     chips = entry["chips"]
-    if card and (not torch.cuda.is_available() or torch.cuda.device_count() < chips):
-        raise Refused(f"{name} needs {chips} CUDA card(s); this machine has "
-                      f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+    check_cards(torch, name, chips, card)
     libraries0 = built_files()
     program = import_program()
     runner = program["runner"]
@@ -231,13 +237,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, card: bool = 
     genomes_dir = work / "genomes"
     paths = gen.write_collection(collection, seed, genomes_dir)
     os.sync()  # the collection's pages reach the disk before the window, not during it
-    logger = logging.getLogger("anibench.program")
-    logger.propagate = False
-    if not logger.handlers:
-        handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter("program %(levelname)s %(message)s"))
-        logger.addHandler(handler)
-    logger.setLevel(logging.WARNING)
+    logger = program_logger()
     params = config["params"]
 
     def one_run(directory: Path, db: Path, cache: Path) -> None:
@@ -318,19 +318,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, card: bool = 
     t_ref = time.perf_counter()
     ref_rows = reference.compute(paths, all_pairs, ref_device, params)
     ref_s = time.perf_counter() - t_ref
-    md5 = {i: reference_md5(p) for i, p in enumerate(paths)}
-    want = {(md5[q], md5[s]): row for (q, s), row in ref_rows.items()}
-    every = {(md5[q], md5[s]) for q, s in all_pairs}
-    fields = config["fields"]
+    numbers, failed = judge_stored(stored, ref_rows, paths, all_pairs, config)
     limits = config["limits"]
-    numbers: dict[str, float] = {}
-    failed = 0
-    for rows in stored:
-        got, bad = judge.compare(rows, want, fields, limits)
-        missing = len(every - set(rows))
-        got["missing_rows"] = float(missing)
-        failed += bad + missing
-        judge.merge(numbers, got)
     correct = error is None and bool(iterations) and judge.verdict(numbers, limits)
     attempted = len(stored) * len(all_pairs)
 
@@ -383,6 +372,46 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, card: bool = 
         "error": error,
     }
     return result
+
+
+def check_cards(torch, name: str, chips: int, card: bool) -> None:
+    """Refused where the cell's cards are not there (skipped with
+    ``card=False``, tests only)."""
+    if card and (not torch.cuda.is_available() or torch.cuda.device_count() < chips):
+        raise Refused(f"{name} needs {chips} CUDA card(s); this machine has "
+                      f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+
+
+def program_logger() -> logging.Logger:
+    """The logger the harness hands the program: its warnings and errors
+    on standard error."""
+    logger = logging.getLogger("anibench.program")
+    logger.propagate = False
+    if not logger.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("program %(levelname)s %(message)s"))
+        logger.addHandler(handler)
+    logger.setLevel(logging.WARNING)
+    return logger
+
+
+def judge_stored(stored: list[dict], ref_rows: dict, paths: list[Path], all_pairs: list, config: dict) -> tuple[dict[str, float], int]:
+    """The numbers compared over the stored rows of every iteration (the
+    reference's rows keyed by genome index), and the pairs that fail."""
+    from anibench import judge
+
+    md5 = {i: reference_md5(p) for i, p in enumerate(paths)}
+    want = {(md5[q], md5[s]): row for (q, s), row in ref_rows.items()}
+    every = {(md5[q], md5[s]) for q, s in all_pairs}
+    numbers: dict[str, float] = {}
+    failed = 0
+    for rows in stored:
+        got, bad = judge.compare(rows, want, config["fields"], config["limits"])
+        missing = len(every - set(rows))
+        got["missing_rows"] = float(missing)
+        failed += bad + missing
+        judge.merge(numbers, got)
+    return numbers, failed
 
 
 def reference_md5(path: Path) -> str:
